@@ -1,0 +1,201 @@
+"""ResNet backbone + linear regression head on PyTorch.
+
+The same network as the JAX package's ``models/resnet.py`` (v1.5 bottleneck
+with the stride on the 3x3 conv, 7x7/2 stem, [3,4,6,3] blocks, global average
+pool → 2048-d encoding → Linear(2048, 1)), with the same init (He-normal
+fan-out convs, BN γ=1 β=0, lecun-normal head) and the same numerics:
+
+- the public input is NHWC, as in JAX; inside, the network runs NCHW in the
+  channels_last memory format (a permuted NHWC tensor already has that
+  layout, so the permute moves no data);
+- with ``dtype=torch.bfloat16`` the convolutions run under bf16 autocast
+  while parameters and batch-norm statistics stay float32, as
+  ``dtype=bf16, param_dtype=f32`` does in Flax; the pooled encoding is
+  returned in float32;
+- batch norm follows Flax: ``momentum=0.9`` on the running average (0.1 in
+  torch's convention), epsilon 1e-5, and the running variance is updated
+  with the *biased* batch variance (torch's ``nn.BatchNorm2d`` uses the
+  unbiased one).
+
+The FDS hook point is the boundary between :class:`ResNetBackbone` (returns
+the pooled encoding) and :class:`RegressionHead`: the trainer calibrates
+encodings between the two, where the reference calls ``self.FDS.smooth``
+before ``self.linear`` (``imdb-wiki-dir/resnet.py:140-148``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_MOMENTUM = 0.9  # Flax convention: running = 0.9 * running + 0.1 * batch
+BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over NCHW with Flax's running-statistics update.
+
+    Training mode normalizes with the batch mean and biased variance and
+    folds them into the running buffers as ``0.9 * running + 0.1 * batch``;
+    eval mode normalizes with the running buffers."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, BN_EPS)
+        # native_batch_norm returns the batch mean and 1/sqrt(var + eps) of
+        # the biased variance it normalized with (float32 for bf16 input)
+        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                    True, 0.0, BN_EPS)
+        with torch.no_grad():
+            var = invstd.double().pow(-2).sub(BN_EPS).float()
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        return out
+
+
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+def _he_normal_fan_out(w: torch.Tensor, generator: torch.Generator | None) -> None:
+    """``normal(0, sqrt(2 / (k*k*out_channels)))`` (reference
+    ``resnet.py:103-106``; Flax ``variance_scaling(2.0, 'fan_out', 'normal')``)."""
+    fan_out = w.shape[0] * w.shape[2] * w.shape[3]
+    with torch.no_grad():
+        w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+class Bottleneck(nn.Module):
+    """1x1 → 3x3(stride) → 1x1(x4) bottleneck, pre-activation-free (v1.5)."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        out_features = features * self.expansion
+        self.conv1 = _conv(in_features, features, 1)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = _conv(features, features, 3, stride)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = _conv(features, out_features, 1)
+        self.bn3 = BatchNorm(out_features)
+        self.downsample = None
+        if in_features != out_features or stride != 1:
+            self.downsample = nn.Sequential(_conv(in_features, out_features, 1, stride),
+                                            BatchNorm(out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNetBackbone(nn.Module):
+    """Stem + residual stages + global average pool → [N, 2048] encoding.
+
+    Takes NHWC images. With ``return_features=True`` the per-stage feature
+    maps (NCHW, channels_last) are returned instead (the NYUD2 ``E_resnet``
+    encoder, ``nyud2-dir/models/modules.py:33-59``)."""
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 return_features: bool = False, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.stage_sizes = tuple(stage_sizes)
+        self.return_features = return_features
+        self.dtype = dtype
+        self.conv1 = _conv(3, width, 7, 2)
+        self.bn1 = BatchNorm(width)
+        in_features = width
+        for stage, num_blocks in enumerate(self.stage_sizes):
+            blocks = []
+            for block in range(num_blocks):
+                stride = 2 if stage > 0 and block == 0 else 1
+                blocks.append(Bottleneck(in_features, width * 2**stage, stride))
+                in_features = width * 2**stage * Bottleneck.expansion
+            self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.out_features = in_features
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                _he_normal_fan_out(m.weight, generator)
+            elif isinstance(m, BatchNorm):
+                m.reset_parameters()
+
+    def forward(self, x: torch.Tensor):
+        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW view in channels_last layout
+        autocast = (torch.autocast(device_type=x.device.type, dtype=self.dtype)
+                    if self.dtype != torch.float32 else contextlib.nullcontext())
+        with autocast:
+            x = x.to(self.dtype)
+            x = F.relu(self.bn1(self.conv1(x)))
+            x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
+            features = []
+            for stage in range(len(self.stage_sizes)):
+                x = getattr(self, f"layer{stage + 1}")(x)
+                features.append(x)
+            if self.return_features:
+                return tuple(features)
+            # global average pool == the reference's AvgPool2d(7) at 224x224
+            encoding = x.mean(dim=(2, 3))
+        return encoding.to(torch.float32)
+
+
+class RegressionHead(nn.Module):
+    """Final linear regressor; optional dropout like the reference's
+    ``--dropout`` path (``imdb-wiki-dir/resnet.py:146-148``). Dropout draws
+    from the generator passed to ``forward``."""
+
+    def __init__(self, in_features: int = 2048, out_dim: int = 1, dropout: float | None = None):
+        super().__init__()
+        self.dropout = dropout
+        self.linear = nn.Linear(in_features, out_dim)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Flax ``nn.Dense`` default: lecun-normal kernel (truncated normal at
+        two standard deviations, rescaled to unit variance) and zero bias."""
+        fan_in = self.linear.weight.shape[1]
+        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        with torch.no_grad():
+            w = torch.empty_like(self.linear.weight)
+            # rejection-free truncation: inverse CDF of a uniform draw
+            u = torch.empty_like(w).uniform_(generator=generator)
+            lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+            w = torch.erfinv(lo + u * (hi - lo)) * math.sqrt(2.0) * std
+            self.linear.weight.copy_(w)
+            self.linear.bias.zero_()
+
+    def forward(self, encoding: torch.Tensor, generator: torch.Generator | None = None):
+        if self.dropout and self.training:
+            keep = torch.rand(encoding.shape, generator=generator,
+                              device=encoding.device) < 1.0 - self.dropout
+            encoding = torch.where(keep, encoding / (1.0 - self.dropout),
+                                   torch.zeros_like(encoding))
+        return self.linear(encoding.to(torch.float32))
+
+
+def resnet50_backbone(dtype: torch.dtype = torch.bfloat16) -> ResNetBackbone:
+    return ResNetBackbone(stage_sizes=(3, 4, 6, 3), dtype=dtype)

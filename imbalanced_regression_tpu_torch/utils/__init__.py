@@ -1,0 +1,2 @@
+"""Host-side utilities: shot-partitioned evaluation metrics, config, metrics
+logging."""
