@@ -8,10 +8,12 @@ it is held against:
               calibration, segment moments, and the hand-written CUDA kernels
               (``ops/cuda_kernels.py``, sources in ``csrc/``).
 - ``fds``     Feature Distribution Smoothing state and transitions.
-- ``models``  ResNet-50 backbone and regression head.
-- ``data``    on-device augmentation, synthetic data, batching.
-- ``utils``   shot metrics, config, metrics logging.
-- ``tasks``   the age-regression driver.
+- ``models``  ResNet-50 backbone and regression head; the NYUD2 depth
+              encoder-decoder and head.
+- ``data``    on-device augmentation, synthetic data, batching, the NYUD2
+              pipeline.
+- ``utils``   shot and depth metrics, config, metrics logging.
+- ``tasks``   the age-regression and NYUD2 depth drivers.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.
 """

@@ -16,6 +16,14 @@ Flax names: the stem is ``Conv_0``/``BatchNorm_0``; the blocks are
 ``Conv_0..2``/``BatchNorm_0..2``, with the downsample at
 ``Conv_3``/``BatchNorm_3``; the head is ``Dense_0``. A stage starts at every
 block that has a downsample.
+
+The depth encoder-decoder (:func:`depth_from_flax`) keeps the ResNet under
+``encoder`` and names the rest in call order: ``Conv_0``/``BatchNorm_0``
+(D's 1x1 conv), ``UpProjection_0..3`` (D), ``UpProjection_4..7`` (MFF, one
+per encoder stage), ``Conv_1..3``/``BatchNorm_1..3`` (the MFF fuse and the
+two R-trunk convs); inside an ``UpProjection``, ``Conv_0..2``/
+``BatchNorm_0..2`` in the order conv1, conv1_2, conv2. Its head is
+``Conv_0`` with a bias.
 """
 
 from __future__ import annotations
@@ -76,6 +84,35 @@ def _backbone_from_flax(params: dict, stats: dict) -> dict:
             sd[f"{t}.downsample.0.weight"] = _conv(bp["Conv_3"])
             sd.update(_bn(f"{t}.downsample.1", bp["BatchNorm_3"], bs["BatchNorm_3"]))
     return sd
+
+
+def depth_from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> dict:
+    """Convert a Flax ``DepthEncoderDecoder`` variables tree and the
+    ``DepthHead`` params into ``{"backbone": state_dict, "head":
+    state_dict}`` for :class:`models.depth_encdec.DepthEncoderDecoder` and
+    :class:`models.depth_encdec.DepthHead`; either input may be None."""
+    out = {}
+    if variables_np is not None:
+        params, stats = variables_np["params"], variables_np["batch_stats"]
+        sd = {f"encoder.{k}": v
+              for k, v in _backbone_from_flax(params["encoder"], stats["encoder"]).items()}
+        convs = [("d_conv", "d_bn"), ("mff_conv", "mff_bn"), ("r_conv0", "r_bn0"),
+                 ("r_conv1", "r_bn1")]
+        for j, (conv, bn) in enumerate(convs):
+            sd[f"{conv}.weight"] = _conv(params[f"Conv_{j}"])
+            sd.update(_bn(bn, params[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"]))
+        ups = [f"d_up.{k}" for k in range(4)] + [f"mff_up.{k}" for k in range(4)]
+        for k, name in enumerate(ups):
+            up_p, up_s = params[f"UpProjection_{k}"], stats[f"UpProjection_{k}"]
+            for j, (conv, bn) in enumerate([("conv1", "bn1"), ("conv1_2", "bn1_2"),
+                                            ("conv2", "bn2")]):
+                sd[f"{name}.{conv}.weight"] = _conv(up_p[f"Conv_{j}"])
+                sd.update(_bn(f"{name}.{bn}", up_p[f"BatchNorm_{j}"], up_s[f"BatchNorm_{j}"]))
+        out["backbone"] = sd
+    if head_params_np is not None:
+        conv = head_params_np["Conv_0"]
+        out["head"] = {"conv.weight": _conv(conv), "conv.bias": _t(conv["bias"])}
+    return out
 
 
 def fds_state_from_numpy(arrays: dict, device="cuda") -> FDSState:

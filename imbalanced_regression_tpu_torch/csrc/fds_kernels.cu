@@ -1,8 +1,10 @@
 // FDS kernels for NVIDIA Hopper (sm_90a), bound to Python with ctypes.
 //
-// Build (ops/cuda_kernels.py does this at first use):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-//        -Xcompiler -fPIC -o libfds_kernels.so fds_kernels.cu
+// Build (ops/cuda_kernels.py does this at first use, one nvcc per source
+// file, then one link):
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+//        -c fds_kernels.cu -o fds_kernels.o   (the same for moments_v2.cu)
+//   nvcc -shared -o libfds_kernels.so fds_kernels.o moments_v2.o
 // No --use_fast_math: the calibrate kernels use IEEE division and square
 // root (__fdiv_rn, __fsqrt_rn) and unfused multiply/add (__fmul_rn,
 // __fadd_rn), so they round exactly like the plain PyTorch version, which
@@ -14,6 +16,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "moments_common.cuh"
 
 namespace {
 
@@ -73,9 +77,10 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int rem, const flo
 // Bound on the H100: memory. Per element it reads x, writes out and reads
 // the four (two, backward) gathered table values, for ~10 float operations:
 // about 1 operation per byte, far below the card's ~20 float32 operations
-// per byte. At the age slice's shapes (N = 128, D = 2048, B = 100) the whole
+// per byte. At the age slice's shapes (N = 64, D = 2048, B = 100) the whole
 // call moves a few MB, i.e. a few microseconds at 3.35 TB/s, so the launch
-// itself dominates.
+// itself dominates; at the NYUD2 train step's (N = 554,496 pixels, D = 128,
+// B = 93) x in and out are 568 MB, ~0.17 ms.
 //
 // Design: the TPU kernel gathers each sample's bucket rows with a one-hot
 // matmul because the TPU has no dynamic gather. Here each row reads its own
@@ -83,7 +88,8 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int rem, const flo
 // vector loads along D where D % 4 == 0 and the pointers are aligned. One
 // thread owns four consecutive columns of one row; a 64 x 4 block covers
 // 256 columns of 4 rows, so neighbouring threads touch neighbouring
-// addresses. Rows that are gated off copy x through without reading any
+// addresses. The grid's x axis walks the row blocks (the NYUD2 step has
+// 138,624 of them, beyond the 65,535 of the y axis). Rows that are gated off copy x through without reading any
 // table. The table rows of popular buckets are re-read by many rows and hit
 // in L2 (the four [100, 2048] tables are 3.3 MB).
 template <typename T, bool VEC, bool BWD>
@@ -93,8 +99,8 @@ __global__ void __launch_bounds__(256) calibrate_kernel(
     const float* __restrict__ m2, const float* __restrict__ v2,
     const float* __restrict__ v1sum, float* __restrict__ out,
     int n, int d, int nb, float lo, float hi, int positive) {
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * 4;
   if (row >= n || col >= d) return;
   const int rem = d - col;
   const size_t off = static_cast<size_t>(row) * d + col;
@@ -137,7 +143,9 @@ int launch_calibrate(const T* x, const int* e, const bool* ok, const float* m1,
                      float hi, int positive, cudaStream_t stream) {
   if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   const dim3 block(64, 4);
-  const dim3 grid((d + 4 * block.x - 1) / (4 * block.x), (n + block.y - 1) / block.y);
+  // row blocks on x (up to 2^31 - 1; y and z stop at 65,535), column tiles on y
+  const dim3 grid((n + block.y - 1) / block.y, (d + 4 * block.x - 1) / (4 * block.x));
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   bool vec = d % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(v1, 16) &&
              aligned(v2, 16) && aligned(out, 16);
   if (!BWD) vec = vec && aligned(m1, 16) && aligned(m2, 16);
@@ -160,31 +168,41 @@ int launch_calibrate(const T* x, const int* e, const bool* ok, const float* m1,
 // accumulation.
 //
 // Bound on the H100: memory. Each feature value is read once and costs
-// three operations; the outputs are 2 x B x D floats. At the stats pass's
-// shapes (N = batch, D = 2048, B = 100) the outputs (1.6 MB) outweigh the
-// input, and the call is a few microseconds of traffic, so launch overhead
-// dominates.
+// three operations. On the age path (N = 64, D = 2048, B = 100) the outputs
+// (1.6 MB) outweigh the input and launch overhead dominates; on the NYUD2
+// stats pass (N = 32 x 114 x 152 = 554,496 pixels, D = 128, B = 93) the
+// 284 MB of features are the traffic: ~0.085 ms at 3.35 TB/s.
 //
 // Design: deterministic, with no float atomics. The TPU kernel contracts a
 // one-hot [B, T] tile with the features on the MXU and carries the sums
-// across the sequential grid; here one block owns a 32-column tile of D and
-// walks all N rows, so nothing has to be combined across blocks. Each warp
-// of the block takes every nwarps-th row; a lane owns one column, so a row
-// is one coalesced 128-byte load, and the lane adds it into the warp's own
-// [B, 32] accumulators in shared memory (one lane per address: no races).
-// At the end the block adds its warps' accumulators in warp order and
-// writes the tile. The order of every sum is fixed by (N, nwarps), so two
-// runs give the same bits. Counts are kept only by the blocks of column
-// tile 0 (as pl.when(i_d == 0) does), by lane 0 of each warp.
-template <typename T>
+// across the sequential grid. Here the grid is (32-column tiles of D) x
+// (row chunks, moments_common.cuh): at D = 128 the four column tiles alone
+// would leave 128 of 132 SMs idle, so the rows are cut into chunks until
+// the blocks fill the card, and a second pass adds the chunks' partials in
+// chunk order. Within a block each warp takes every nwarps-th row of the
+// chunk; a lane owns one column, so a row is one coalesced 128-byte load,
+// and the lane adds it into the warp's own [B, 32] accumulators in shared
+// memory (one lane per address: no races). A warp starts the loads of U
+// rows before it adds any of them, so U loads per warp are in flight. At
+// the end the block adds its warps' accumulators in warp order. The order
+// of every sum is fixed by (N, chunks, nwarps), so two runs give the same
+// bits. Counts are kept only by the blocks of column tile 0 (as
+// pl.when(i_d == 0) does), by lane 0 of each warp.
+//
+// Outputs: counts [chunks][nb], sums and sumsq [chunks][nb][d] (with one
+// chunk, the final outputs).
+template <typename T, int U>
 __global__ void __launch_bounds__(256) moments_kernel(
     const T* __restrict__ f, const int* __restrict__ idx, float* __restrict__ counts,
-    float* __restrict__ sums, float* __restrict__ sumsq, int n, int d, int nb) {
+    float* __restrict__ sums, float* __restrict__ sumsq, int n, int d, int nb, int chunk_rows) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int col = blockIdx.x * 32 + lane;
+  const int chunk = blockIdx.y;
+  const int r_begin = chunk * chunk_rows;
+  const int r_end = min(n, r_begin + chunk_rows);
   const int acc_len = 2 * nb * 32;  // per warp: sums [nb][32], then sumsq [nb][32]
   float* acc = smem + warp * acc_len;
   float* cnt = smem + nwarps * acc_len;  // [nwarps][nb]
@@ -194,19 +212,29 @@ __global__ void __launch_bounds__(256) moments_kernel(
   for (int i = threadIdx.x; i < total; i += blockDim.x) smem[i] = 0.f;
   __syncthreads();
 
-#pragma unroll 4
-  for (int r = warp; r < n; r += nwarps) {
-    const int b = __ldg(idx + r);
-    if (b < 0 || b >= nb) continue;  // the same for the whole warp
-    if (col < d) {
-      const float v = to_float(f[static_cast<size_t>(r) * d + col]);
-      acc[b * 32 + lane] += v;
-      acc[(nb + b) * 32 + lane] += __fmul_rn(v, v);
+  for (int r0 = r_begin + warp; r0 < r_end; r0 += nwarps * U) {
+    int b[U];
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = r0 + u * nwarps;
+      const bool in = r < r_end;
+      b[u] = in ? __ldg(idx + r) : -1;
+      v[u] = in && col < d ? to_float(f[static_cast<size_t>(r) * d + col]) : 0.f;
     }
-    if (do_count && lane == 0) cnt[warp * nb + b] += 1.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (b[u] < 0 || b[u] >= nb) continue;  // the same for the whole warp
+      if (col < d) {
+        acc[b[u] * 32 + lane] += v[u];
+        acc[(nb + b[u]) * 32 + lane] += __fmul_rn(v[u], v[u]);
+      }
+      if (do_count && lane == 0) cnt[warp * nb + b[u]] += 1.f;
+    }
   }
   __syncthreads();
 
+  const size_t out = static_cast<size_t>(chunk) * nb * d;
   for (int i = threadIdx.x; i < nb * 32; i += blockDim.x) {
     const int b = i >> 5, l = i & 31;
     const int c = blockIdx.x * 32 + l;
@@ -216,33 +244,46 @@ __global__ void __launch_bounds__(256) moments_kernel(
       s += smem[w * acc_len + b * 32 + l];
       q += smem[w * acc_len + (nb + b) * 32 + l];
     }
-    sums[static_cast<size_t>(b) * d + c] = s;
-    sumsq[static_cast<size_t>(b) * d + c] = q;
+    sums[out + static_cast<size_t>(b) * d + c] = s;
+    sumsq[out + static_cast<size_t>(b) * d + c] = q;
   }
   if (do_count) {
     for (int b = threadIdx.x; b < nb; b += blockDim.x) {
       float c = 0.f;
       for (int w = 0; w < nwarps; ++w) c += cnt[w * nb + b];
-      counts[b] = c;
+      counts[static_cast<size_t>(chunk) * nb + b] = c;
     }
   }
 }
 
+constexpr int kMomentsRowsInFlight = 16;  // U: rows a warp loads before it adds them
+
+// With chunks > 1 the first pass writes the ws_* workspaces ([chunks][nb]
+// and [chunks][nb][d]) and the second pass the outputs.
 template <typename T>
 int launch_moments(const T* f, const int* idx, float* counts, float* sums, float* sumsq,
-                   int n, int d, int nb, cudaStream_t stream) {
+                   float* ws_counts, float* ws_sums, float* ws_sumsq, int n, int d, int nb,
+                   int chunks, cudaStream_t stream) {
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const int per_warp = (2 * nb * 32 + nb) * static_cast<int>(sizeof(float));
   int nwarps = max_smem / per_warp;
   if (nwarps > 8) nwarps = 8;
-  if (nwarps < 1 || d == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nwarps < 1 || d == 0 || chunks < 1 || chunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = nwarps * per_warp;
-  cudaFuncSetAttribute(moments_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const dim3 grid((d + 31) / 32);
-  moments_kernel<T><<<grid, nwarps * 32, smem, stream>>>(f, idx, counts, sums, sumsq, n, d, nb);
-  return static_cast<int>(cudaGetLastError());
+  auto kernel = moments_kernel<T, kMomentsRowsInFlight>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool split = chunks > 1;
+  const dim3 grid((d + 31) / 32, chunks);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(f, idx, split ? ws_counts : counts,
+                                              split ? ws_sums : sums, split ? ws_sumsq : sumsq,
+                                              n, d, nb, rows_per_chunk(n, chunks));
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || !split) return err;
+  return launch_reduce_chunks(ws_counts, ws_sums, ws_sumsq, counts, sums, sumsq, chunks, nb, d,
+                              stream);
 }
 
 }  // namespace
@@ -269,14 +310,17 @@ int fds_calibrate_bwd(const float* g, const int* e, const bool* ok, const float*
                                        nb, lo, hi, positive, static_cast<cudaStream_t>(stream));
 }
 
+// ws_*: workspaces for chunks > 1 (may be null with one chunk).
 int fds_segment_moments(const void* f, int f_bf16, const int* idx, float* counts, float* sums,
-                        float* sumsq, int n, int d, int nb, void* stream) {
+                        float* sumsq, float* ws_counts, float* ws_sums, float* ws_sumsq, int n,
+                        int d, int nb, int chunks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f_bf16)
     return launch_moments<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(f), idx, counts,
-                                         sums, sumsq, n, d, nb, s);
-  return launch_moments<float>(static_cast<const float*>(f), idx, counts, sums, sumsq, n, d,
-                               nb, s);
+                                         sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb,
+                                         chunks, s);
+  return launch_moments<float>(static_cast<const float*>(f), idx, counts, sums, sumsq, ws_counts,
+                               ws_sums, ws_sumsq, n, d, nb, chunks, s);
 }
 
 }  // extern "C"

@@ -28,7 +28,8 @@ Three grouping semantics are preserved exactly (SURVEY.md §2.3-2.5):
   (``nyud2-dir/models/fds.py:51-53,138-139``).
 
 On a CUDA tensor, calibration runs through the K1/K2 kernels
-(:class:`ops.cuda_kernels.FDSCalibrate`) and the moments through K3.
+(:class:`ops.cuda_kernels.FDSCalibrate`) and the moments through K3 (or K4
+with ``use_kernel="v2"``).
 """
 
 from __future__ import annotations
@@ -229,12 +230,16 @@ def _sample_ok(config: FDSConfig, labels, is_lo, is_hi, in_range):
 # ---------------------------------------------------------------------------
 
 
-def fds_bucket_moments(config: FDSConfig, features, labels, bucket_idx=None) -> BucketMoments:
-    """Per-bucket moments of one batch; additive across batches/shards."""
+def fds_bucket_moments(config: FDSConfig, features, labels, bucket_idx=None,
+                       use_kernel: str | None = None) -> BucketMoments:
+    """Per-bucket moments of one batch; additive across batches/shards.
+    ``use_kernel`` selects the moments kernel (see
+    :func:`ops.moments.bucket_moments`)."""
     features = _check_features(config, features)
     idx, is_lo, is_hi, _ = _bucketize(config, labels, bucket_idx)
     edge = (is_lo, is_hi) if config.grouping == "age" else None
-    return bucket_moments(features, idx, config.num_buckets, edge_labels=edge)
+    return bucket_moments(features, idx, config.num_buckets, edge_labels=edge,
+                          use_kernel=use_kernel)
 
 
 def fds_apply_moments(config: FDSConfig, state: FDSState, moments: BucketMoments,
@@ -337,9 +342,11 @@ def fds_smooth(config: FDSConfig, state: FDSState, features, labels, epoch: int,
     Functional equivalent of ``FDS.smooth`` (``imdb-wiki-dir/fds.py:115-144``):
     gather each sample's bucket rows from the last-epoch running and smoothed
     stats and apply the calibrate transform. Identity while
-    ``epoch < start_smooth``. Accepts [N, D] features (flatten dense maps
-    before calling). The gather and calibrate run as one kernel (K1, with K2
-    as its backward) on a CUDA tensor, and as its plain version on the CPU.
+    ``epoch < start_smooth``. Accepts [N, D] features or dense [..., D] maps
+    (NYUD2's [N, H, W, D] hook), flattened to rows here (a view for a
+    contiguous map) and returned in the input's shape. The gather and
+    calibrate run as one kernel (K1, with K2 as its backward) on a CUDA
+    tensor, and as its plain version on the CPU.
     """
     # The JAX step computes the calibration and then discards it before
     # start_smooth (it is traced once for every epoch); eager PyTorch skips

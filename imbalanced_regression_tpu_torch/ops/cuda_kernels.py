@@ -1,24 +1,28 @@
 """Hand-written CUDA kernels for the FDS hot ops, with their build and
 binding.
 
-Three kernels in ``csrc/fds_kernels.cu`` replace the Pallas TPU kernels of
-the JAX package (``imbalanced_regression_tpu/ops/pallas_kernels.py``):
+Four kernels in ``csrc/`` replace the Pallas TPU kernels of the JAX package
+(``imbalanced_regression_tpu/ops/pallas_kernels.py``):
 
 - K1 :func:`calibrate_forward` — fused gather + FDS calibrate
-  (``pallas_calibrate`` / ``_calibrate_kernel``);
+  (``pallas_calibrate`` / ``_calibrate_kernel``; ``fds_kernels.cu``);
 - K2 :func:`calibrate_backward` — its gradient in ``x``
-  (``_pallas_calibrate_bwd`` / ``_calibrate_bwd_kernel``);
+  (``_pallas_calibrate_bwd`` / ``_calibrate_bwd_kernel``; ``fds_kernels.cu``);
 - K3 :func:`segment_moments` — per-bucket count, sum and sum of squares
-  (``pallas_moments`` / ``_moments_kernel``).
+  (``pallas_moments`` / ``_moments_kernel``; ``fds_kernels.cu``);
+- K4 :func:`segment_moments_v2` — the same moments from a three-term bf16
+  split on the tensor cores (``pallas_moments_v2`` / ``_moments_v2_kernel``
+  and ``_split3``; ``moments_v2.cu``).
 
-The split-precision moments kernel (``pallas_moments_v2``) is not ported
-yet.
+K3 and K4 cut the rows into chunks (:func:`row_chunks`) and add the chunks'
+partials in a fixed order, so both are deterministic.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, into ``imbalanced_regression_tpu_torch/
-build/`` under a name keyed by a hash of the sources and flags, and loaded
-with ``ctypes``. Each wrapper launches its kernel on the current CUDA stream
-for a CUDA tensor (or raises), and runs the plain PyTorch version only for a
+Each source is compiled with ``nvcc`` for ``sm_90a`` (all at once, one
+process per file) and linked into a shared library with a plain C
+interface, at first use, into ``imbalanced_regression_tpu_torch/build/``
+under a name keyed by a hash of the sources and flags, and loaded with
+``ctypes``. Each wrapper launches its kernel on the current CUDA stream for
+a CUDA tensor (or raises), and runs the plain PyTorch version only for a
 tensor on the CPU. Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
@@ -40,7 +44,7 @@ from imbalanced_regression_tpu_torch.ops.calibrate import calibrate_indexed, cal
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
@@ -51,8 +55,10 @@ _SIGNATURES = {
     "fds_calibrate_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     # g, e, ok, v1, v2, v1sum, out, n, d, nb, lo, hi, positive, stream
     "fds_calibrate_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
-    # f, f_bf16, idx, counts, sums, sumsq, n, d, nb, stream
-    "fds_segment_moments": (_P, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # f, f_bf16, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
+    "fds_segment_moments": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # f, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
+    "fds_segment_moments_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -69,27 +75,38 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library built from the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    sources = sorted(SOURCE_DIR.glob("*.cu"))
-    for src in sources:
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):  # the .cu sources and their .cuh headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfds_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    The compiler's output (register and shared-memory use per kernel) goes
-    to a ``.log`` file beside the library. Raises if the build fails."""
+    """Compile each ``csrc/*.cu`` to an object, one ``nvcc`` per source, all
+    started together, and link them, unless the library for these sources
+    exists. The compiler's output (register and shared-memory use per
+    kernel) goes to a ``.log`` file beside the library. Raises if the build
+    fails."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(SOURCE_DIR.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    sources = sorted(SOURCE_DIR.glob("*.cu"))
+    objects = [str(tmp.with_suffix(f".{src.stem}.o")) for src in sources]
+    compiles = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", obj] for src, obj in zip(sources, objects)]
+    log = []
+    for step in (compiles, [[_nvcc(), "-shared", "-o", str(tmp), *objects]]):
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in step]
+        outputs = [proc.communicate()[0] for proc in procs]
+        log += [" ".join(cmd) + "\n" + text for cmd, text in zip(step, outputs)]
+        out.with_suffix(".log").write_text("\n".join(log))
+        for proc, text in zip(procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text[-4000:]}")
+    for obj in objects:
+        os.unlink(obj)
     os.replace(tmp, out)
     return out
 
@@ -215,8 +232,30 @@ class FDSCalibrate(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
-# K3: segment moments
+# K3 / K4: segment moments
 # ---------------------------------------------------------------------------
+
+MIN_CHUNK_ROWS = 1024  # no row chunk of K3/K4 is cut shorter than this
+
+
+def row_chunks(n: int, col_tiles: int, target_blocks: int) -> int:
+    """Row chunks of a segment-moments launch: enough (column tile x chunk)
+    blocks to reach ``target_blocks``, but none shorter than
+    ``MIN_CHUNK_ROWS`` rows, and at least one. A function of the shapes and
+    the card only, so two runs add the same partials in the same order."""
+    return max(1, min(-(-n // MIN_CHUNK_ROWS), -(-target_blocks // col_tiles)))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _onehot(idx, num_buckets: int) -> torch.Tensor:
+    """float32 [N, B] one-hot of ``idx``; indices outside [0, B) give a zero row."""
+    valid = (idx >= 0) & (idx < num_buckets)
+    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    return F.one_hot(safe, num_buckets).to(torch.float32) * valid[:, None]
 
 
 def segment_moments_plain(features, idx, num_buckets: int):
@@ -224,10 +263,66 @@ def segment_moments_plain(features, idx, num_buckets: int):
     of ``features`` grouped by ``idx`` (indices outside [0, B) are
     ignored), in float32 with TF32 off (the caller's global setting)."""
     f = features.to(torch.float32)
-    valid = (idx >= 0) & (idx < num_buckets)
-    safe = torch.where(valid, idx, torch.zeros_like(idx)).long()
-    onehot = F.one_hot(safe, num_buckets).to(torch.float32) * valid[:, None]
+    onehot = _onehot(idx, num_buckets)
     return onehot.sum(0), onehot.T @ f, onehot.T @ (f * f)
+
+
+def split3(x: torch.Tensor):
+    """Three bf16 terms with ``h1 + h2 + h3 == x`` to float32 accuracy, each
+    rounded to nearest from the remainder of the ones before (JAX
+    ``pallas_kernels._split3``)."""
+    h1 = x.to(torch.bfloat16)
+    r1 = x - h1.to(torch.float32)
+    h2 = r1.to(torch.bfloat16)
+    h3 = (r1 - h2.to(torch.float32)).to(torch.bfloat16)
+    return h1, h2, h3
+
+
+def segment_moments_v2_plain(features, idx, num_buckets: int):
+    """K4's arithmetic in plain PyTorch: the one-hot times each bf16 term of
+    ``split3(f)`` and ``split3(f * f)``, widened to float32 (exactly), with
+    float32 accumulation (TF32 off, the caller's global setting), the three
+    products of each quantity added as ``(p1 + p2) + p3``."""
+    f = features.to(torch.float32)
+    onehot = _onehot(idx, num_buckets)
+
+    def contract(x):
+        p1, p2, p3 = (onehot.T @ h.to(torch.float32) for h in split3(x))
+        return (p1 + p2) + p3
+
+    return onehot.sum(0), contract(f), contract(f * f)
+
+
+def _moments_launch(name: str, features, idx, num_buckets: int, col_tiles: int,
+                    blocks_per_sm: int, *flags):
+    """Allocate the outputs (and, with several row chunks, the workspaces)
+    and launch one of the segment-moments entry points."""
+    n, d = features.shape
+    dev = features.device
+    chunks = row_chunks(n, col_tiles, blocks_per_sm * _sm_count(dev.index))
+    counts = torch.empty((num_buckets,), dtype=torch.float32, device=dev)
+    sums = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
+    sumsq = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
+    # workspaces: partial counts [chunks, B], sums and sums of squares
+    # [chunks, B, D]; held until the launches are enqueued (after that the
+    # caching allocator hands their blocks only to later work on this stream)
+    ws = []
+    if chunks > 1:
+        ws = [torch.empty((chunks, num_buckets), dtype=torch.float32, device=dev),
+              torch.empty((chunks, num_buckets, d), dtype=torch.float32, device=dev),
+              torch.empty((chunks, num_buckets, d), dtype=torch.float32, device=dev)]
+    ws_ptrs = [t.data_ptr() for t in ws] or [None] * 3
+    _launch(name, features.data_ptr(), *flags, idx.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+            sumsq.data_ptr(), *ws_ptrs, n, d, num_buckets, chunks)
+    return counts, sums, sumsq
+
+
+def _check_moments_inputs(features, idx, dtypes) -> None:
+    n, d = features.shape
+    _check("features", features, dtypes, (n, d), features.device)
+    _check("idx", idx, (torch.int32,), (n,), features.device)
+    if d == 0:
+        raise ValueError("features need at least one column")
 
 
 def segment_moments(features, idx, num_buckets: int):
@@ -237,23 +332,36 @@ def segment_moments(features, idx, num_buckets: int):
     on the same inputs give the same bits."""
     if _on_cpu(features):
         return segment_moments_plain(features, idx, num_buckets)
-    n, d = features.shape
-    dev = features.device
-    _check("features", features, _FEATURE_DTYPES, (n, d), dev)
-    _check("idx", idx, (torch.int32,), (n,), dev)
-    if d == 0:
-        raise ValueError("features need at least one column")
-    counts = torch.empty((num_buckets,), dtype=torch.float32, device=dev)
-    sums = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
-    sumsq = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
-    _launch("fds_segment_moments", features.data_ptr(), int(features.dtype == torch.bfloat16),
-            idx.data_ptr(), counts.data_ptr(), sums.data_ptr(), sumsq.data_ptr(), n, d,
-            num_buckets)
+    _check_moments_inputs(features, idx, _FEATURE_DTYPES)
+    # 32-column tiles; one block per SM (a block holds 8 warps' [B, 32]
+    # accumulators, ~190 kB of shared memory at B = 93)
+    out = _moments_launch("fds_segment_moments", features, idx, num_buckets,
+                          -(-features.shape[1] // 32), 1, int(features.dtype == torch.bfloat16))
     segment_moments.launches += 1
-    return counts, sums, sumsq
+    return out
 
 
-KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments)
+V2_MAX_BUCKETS = 128  # K4 keeps the padded bucket axis in at most 8 tiles of 16
+
+
+def segment_moments_v2(features, idx, num_buckets: int):
+    """K4: the contract of :func:`segment_moments` for float32 ``features``,
+    computed from a three-term bf16 split on the tensor cores (at most
+    ``V2_MAX_BUCKETS`` buckets). Deterministic. Plain version:
+    :func:`segment_moments_v2_plain`."""
+    if _on_cpu(features):
+        return segment_moments_v2_plain(features, idx, num_buckets)
+    _check_moments_inputs(features, idx, _F32)
+    if not 1 <= num_buckets <= V2_MAX_BUCKETS:
+        raise ValueError(f"segment_moments_v2 takes 1 to {V2_MAX_BUCKETS} buckets, got {num_buckets}")
+    # 16-column tiles; two blocks per SM (~37 kB of shared memory each)
+    out = _moments_launch("fds_segment_moments_v2", features, idx, num_buckets,
+                          -(-features.shape[1] // 16), 2)
+    segment_moments_v2.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments, segment_moments_v2)
 
 
 def reset_launch_counts() -> None:

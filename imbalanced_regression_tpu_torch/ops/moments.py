@@ -14,8 +14,9 @@ This replaces the reference's per-unique-label Python loops
 zero for n == 1 (``torch.var(..., unbiased=False)`` of one sample).
 
 On a CUDA tensor the moments come from the segment-moments kernel (K3,
-``ops/cuda_kernels.py``); on the CPU from its plain version, a one-hot
-contraction.
+``ops/cuda_kernels.py``), or with ``use_kernel="v2"`` from the
+split-precision tensor-core kernel (K4); on the CPU from their plain
+versions, one-hot contractions.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import dataclasses
 
 import torch
 
-from imbalanced_regression_tpu_torch.ops.cuda_kernels import segment_moments
+from imbalanced_regression_tpu_torch.ops.cuda_kernels import segment_moments, segment_moments_v2
 
 
 @dataclasses.dataclass
@@ -74,18 +75,20 @@ def bucket_moments(
     contribute to no bucket. ``edge_labels`` is an optional pair of [N] bool
     tensors (is_exactly_lo, is_exactly_hi) used to compute the age-grouping
     edge gates; defaults to always-on gates. ``use_kernel`` selects the
-    kernel: None = the segment-moments kernel (K3; its plain version for a
-    CPU tensor), ``"v2"`` = the split-precision kernel, not ported yet.
+    kernel: None = the segment-moments kernel (K3), ``"v2"`` = the
+    split-precision kernel (K4, on float32 features, as the JAX
+    ``use_pallas="v2"``); each runs its plain version for a CPU tensor.
     """
-    if use_kernel == "v2":
-        raise NotImplementedError(
-            "use_kernel='v2' needs K4 (pallas_moments_v2), which is not ported yet")
-    if use_kernel is not None:
+    if use_kernel is None:
+        kernel = segment_moments
+    elif use_kernel == "v2":
+        kernel, features = segment_moments_v2, features.to(torch.float32)
+    else:
         raise ValueError(f"use_kernel must be None or 'v2', got {use_kernel!r}")
     idx = bucket_idx.to(torch.int32)
     if valid is not None:
         idx = torch.where(valid, idx, torch.full_like(idx, -1))
-    count, total, total_sq = segment_moments(features.contiguous(), idx.contiguous(), num_buckets)
+    count, total, total_sq = kernel(features.contiguous(), idx.contiguous(), num_buckets)
 
     if edge_labels is not None:
         is_lo, is_hi = edge_labels

@@ -1,0 +1,269 @@
+"""NYUD2-DIR driver on PyTorch: dense depth regression with per-pixel
+LDS/FDS.
+
+The reference's recipe (``nyud2-dir/train.py:66-264`` + ``test.py``), as the
+JAX package's ``tasks/nyud2.py`` runs it: 10 epochs, Adam (lr 1e-4, L2
+1e-4), lr x0.1 every 5 epochs, per-pixel weighted MSE, an FDS stats pass over
+the clean FDS subset, a per-epoch test with bilinear upsampling to the depth
+resolution and the balanced test mask, best by RMSE.
+
+Run: ``python -m imbalanced_regression_tpu_torch.tasks.nyud2 --data_dir
+<nyud2 data> [--fds --lds --reweight inverse ...]`` or ``--synthetic_size N``
+for the synthetic stand-in at the reference's 228x304 crop (depth at
+114x152). Runs on the GPU unless ``--device cpu`` is given.
+
+Checkpoints are not ported: ``--save_ckpt 0`` (the in-memory best state) is
+required, and ``--resume``, ``--evaluate``, ``--ckpt_every_steps``,
+``--pretrained_encoder`` (a torchvision ``.pth``), ``--retrain_fc`` and
+``--num_devices > 1`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from imbalanced_regression_tpu_torch.data.batching import batch_iterator, eval_batches
+from imbalanced_regression_tpu_torch.data.nyud2 import (
+    DEPTH_HW,
+    IMG_HW,
+    TRAIN_BUCKET_NUM,
+    imagenet_normalize,
+    load_nyud2_split,
+    make_pixel_weight_fn,
+    nyud2_train_photometric,
+    synthetic_depth_dataset,
+)
+from imbalanced_regression_tpu_torch.fds import FDSConfig
+from imbalanced_regression_tpu_torch.models.depth_encdec import (
+    DepthEncoderDecoder,
+    DepthHead,
+    depth_feature_dim,
+)
+from imbalanced_regression_tpu_torch.ops.lds import prepare_weights_depth
+from imbalanced_regression_tpu_torch.tasks.age import setup_logging
+from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig, snapshot_state
+from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
+from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
+from imbalanced_regression_tpu_torch.utils.metrics import DepthEvaluator
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class NYUDConfig(ExperimentConfig):
+    dataset: str = "nyud2"
+    loss: str = "mse"
+    lr: float = 1e-4
+    epoch: int = 10
+    batch_size: int = 32
+    bucket_start: int = 7
+    lds_sigma: float = 2.0
+    fds_sigma: float = 2.0
+    weight_decay: float = 1e-4
+    test_batch_size: int = 8
+    fds_subset_limit: int = 0  # cap FDS subset size (0 = all)
+    # ImageNet-pretrained encoder (the reference loads torchvision's
+    # resnet50 weights, nyud2-dir/train.py:110-114); not ported yet
+    pretrained_encoder: str = ""
+    # model scaling knobs (tests shrink these)
+    stage_sizes: tuple[int, ...] = (3, 4, 6, 3)
+    width: int = 64
+    # channel knobs of DepthEncoderDecoder (0 / 16 = the reference widths)
+    mff_features: int = 16
+    decoder_min_features: int = 0
+
+
+def parse_nyud_config(argv=None) -> NYUDConfig:
+    d = NYUDConfig()
+    p = build_parser(d)
+    p.add_argument("--test_batch_size", type=int, default=d.test_batch_size)
+    p.add_argument("--fds_subset_limit", type=int, default=d.fds_subset_limit)
+    p.add_argument("--pretrained_encoder", type=str, default=d.pretrained_encoder,
+                   help="torch .pth with ImageNet encoder weights (not ported yet)")
+    p.add_argument("--mff_features", type=int, default=d.mff_features,
+                   help="MFF per-scale channels (reference: 16)")
+    p.add_argument("--decoder_min_features", type=int, default=d.decoder_min_features,
+                   help="pad decoder stages to >= this many channels (0 = reference)")
+    args, _ = p.parse_known_args(argv)
+    kw = vars(args)
+    kw["schedule"] = tuple(kw["schedule"])
+    return NYUDConfig(**kw)
+
+
+def check_supported(config: NYUDConfig) -> None:
+    """Raise for the flags whose code paths are not ported yet."""
+    unported = {
+        "--resume": bool(config.resume),
+        "--evaluate": config.evaluate,
+        "--ckpt_every_steps": bool(config.ckpt_every_steps),
+        "--save_ckpt 1 (checkpoints)": bool(config.save_ckpt),
+        "--pretrained_encoder": bool(config.pretrained_encoder),
+        "--retrain_fc": config.retrain_fc,
+        "--num_devices > 1": (config.num_devices or 1) > 1,
+    }
+    missing = [flag for flag, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+
+
+def build_nyud_trainer(config: NYUDConfig) -> Trainer:
+    feat_dim = depth_feature_dim(num_features=config.width * 32,
+                                 mff_features=config.mff_features,
+                                 decoder_min_features=config.decoder_min_features)
+    fds_config = None
+    if config.fds:
+        fds_config = FDSConfig.for_depth(
+            feature_dim=feat_dim, bucket_num=config.bucket_num, bucket_start=config.bucket_start,
+            start_update=config.start_update, start_smooth=config.start_smooth,
+            kernel=config.fds_kernel, ks=config.fds_ks, sigma=config.fds_sigma,
+            momentum=config.fds_mmt,
+        )
+    bucket_weights = prepare_weights_depth(
+        TRAIN_BUCKET_NUM, config.reweight, bucket_num=100, bucket_start=config.bucket_start,
+        lds=config.lds, lds_kernel=config.lds_kernel, lds_ks=config.lds_ks,
+        lds_sigma=config.lds_sigma,
+    ) if config.reweight != "none" else None
+
+    # lr * 0.1 ** (epoch // 5) (train.py:230-234): a milestone every 5 epochs
+    tcfg = TrainerConfig(loss=config.loss, lr=config.lr, adam_weight_decay=config.weight_decay,
+                         schedule=tuple(range(5, config.epoch, 5)))
+    backbone = DepthEncoderDecoder(stage_sizes=tuple(config.stage_sizes), width=config.width,
+                                   mff_features=config.mff_features,
+                                   decoder_min_features=config.decoder_min_features,
+                                   dtype=torch.bfloat16)
+    return Trainer(
+        backbone, DepthHead(feat_dim), tcfg, fds_config=fds_config,
+        train_augment=nyud2_train_photometric, eval_transform=imagenet_normalize,
+        weight_fn=make_pixel_weight_fn(bucket_weights), device=config.device,
+    )
+
+
+def test_epoch(trainer, state, test_data, batch_size) -> dict:
+    """Per-epoch evaluation: upsample predictions to depth resolution and
+    apply the balanced per-pixel mask (test.py:39-59)."""
+    evaluator = DepthEvaluator()
+    mask = test_data.get("mask")
+    offset = 0
+    data = {k: v for k, v in test_data.items() if k != "mask"}
+    for batch in eval_batches(data, batch_size):
+        count = batch.pop("count")
+        pred = trainer.predict_batch(state, batch, count)
+        depth = np.asarray(batch["target"])[:count]
+        if pred.shape[1:3] != depth.shape[1:3]:
+            nchw = torch.from_numpy(pred).permute(0, 3, 1, 2)
+            pred = F.interpolate(nchw, size=depth.shape[1:3], mode="bilinear",
+                                 align_corners=False).permute(0, 2, 3, 1).numpy()
+        if mask is not None:
+            m = mask[offset : offset + count]
+            m = m[..., None] if m.ndim == 3 else m
+            evaluator(pred[m], depth[m])
+        else:
+            evaluator(pred, depth)
+        offset += count
+    return evaluator.evaluate_shot()
+
+
+def build_data(config: NYUDConfig):
+    if config.synthetic_size:
+        n = config.synthetic_size
+        full = synthetic_depth_dataset(n, img_hw=IMG_HW, depth_hw=DEPTH_HW)  # the reference's crop
+        tr = int(n * 0.8)
+        train = {k: v[:tr] for k, v in full.items()}
+        test = {k: v[tr:] for k, v in full.items()}
+        fds_subset = {k: v[: max(tr // 4, 1)] for k, v in train.items()}
+        return train, fds_subset, test
+    train = load_nyud2_split(config.data_dir, "nyu2_train.csv", train=True)
+    fds_subset = load_nyud2_split(config.data_dir, "nyu2_train_FDS_subset.csv", train=True,
+                                  limit=config.fds_subset_limit or None)
+    test = load_nyud2_split(config.data_dir, "nyu2_test.csv", train=False,
+                            mask_file="test_balanced_mask.npy")
+    return train, fds_subset, test
+
+
+def run(config: NYUDConfig) -> dict:
+    """Train with a per-epoch FDS pass and test, keeping the best state (by
+    test RMSE) in memory. Returns the best epoch's test metrics, the
+    per-epoch history, the trainer, its state after the last epoch and the
+    snapshot of the best one."""
+    check_supported(config)
+    store_dir = os.path.join(config.store_root, config.derived_store_name())
+    setup_logging(store_dir)
+    logger.info("Config: %s", config)
+
+    train, fds_subset, test = build_data(config)
+    trainer = build_nyud_trainer(config)
+    logger.info("Data: train=%d fds_subset=%d test=%d (device=%s)", len(train["target"]),
+                len(fds_subset["target"]), len(test["target"]), trainer.device)
+    state = trainer.init_state(config.seed)
+
+    writer = MetricsWriter(store_dir)
+    best_rmse, best_metric, best_epoch, best_snapshot = float("inf"), None, -1, None
+    steps_per_epoch = max(len(train["target"]) // config.batch_size, 1)
+    fds_batch = min(config.batch_size, len(fds_subset["target"]))
+    history = []
+    for epoch in range(config.epoch):
+        calibrating = bool(
+            config.fds and epoch >= trainer.fds_config.start_smooth
+            and ((state.fds.running_mean_last_epoch != 0).any()
+                 | (state.fds.running_var_last_epoch != 1).any()).item())
+        t0 = time.time()
+        state, train_loss = trainer.train_epoch(
+            state, batch_iterator(train, config.batch_size,
+                                  rng=np.random.default_rng((config.seed, epoch))), epoch)
+        train_dt = time.time() - t0  # train_epoch ends in a device sync
+        # FDS pass over the clean FDS subset, in order (train.py:216-228)
+        t1 = time.time()
+        state = trainer.fds_epoch_pass(
+            state, batch_iterator(fds_subset, fds_batch, shuffle=False), epoch)
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        fds_dt = time.time() - t1
+        metric = test_epoch(trainer, state, test, config.test_batch_size)
+        rmse = metric["overall"]["RMSE"]
+        if rmse < best_rmse:
+            best_rmse, best_metric, best_epoch = rmse, metric, epoch
+            best_snapshot = snapshot_state(state)
+        throughput = steps_per_epoch * config.batch_size / train_dt
+        rss, peak_rss = host_memory_gb()
+        scalars = {"train_loss": train_loss, "test_rmse": rmse, "images_per_sec": throughput,
+                   "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
+                   "host_peak_rss_gb": peak_rss}
+        writer.log_dict(scalars, epoch)
+        writer.log_dict(metric["overall"], epoch, prefix="test_")
+        history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})
+        logger.info("Epoch %d: train loss %.4f  test RMSE %.3f (best %.3f)  (%.1fs, %.1f img/s, "
+                    "fds pass %.2fs)", epoch, train_loss, rmse, best_rmse, train_dt, throughput,
+                    fds_dt)
+
+    writer.close()
+    logger.info("Best epoch: %d; RMSE: %.3f", best_epoch, best_rmse)
+    _log_metrics(best_metric)
+    return {"test": best_metric, "best_rmse": best_rmse, "best_epoch": best_epoch,
+            "history": history, "trainer": trainer, "state": state,
+            "best_snapshot": best_snapshot}
+
+
+def _log_metrics(metric: dict):
+    logger.info("***** TEST RESULTS *****")
+    for shot in ("overall", "many", "medium", "few"):
+        m = metric[shot]
+        logger.info(" * %s: RMSE %.3f  ABS_REL %.3f  LG10 %.3f  MAE %.3f  "
+                    "DELTA1 %.3f  DELTA2 %.3f  DELTA3 %.3f  NUM %d",
+                    shot.capitalize(), m["RMSE"], m["ABS_REL"], m["LG10"], m["MAE"],
+                    m["DELTA1"], m["DELTA2"], m["DELTA3"], m["NUM"])
+
+
+def main(argv=None):
+    return run(parse_nyud_config(argv))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

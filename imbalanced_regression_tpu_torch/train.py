@@ -15,15 +15,20 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
 - **Update ordering preserved**: ``update_last_epoch_stats(epoch)`` *then*
   ``update_running_stats(..., epoch)`` — the stats snapshot used for
   smoothing during epoch e+1 excludes epoch e's features.
-- **Per-epoch MultiStep lr**: ``lr * 0.1`` per passed milestone, set on the
+- **Per-epoch MultiStep lr**: ``lr * 0.1`` per passed milestone (NYUD2's
+  ``lr * 0.1 ** (epoch // 5)`` is milestones every 5 epochs), set on the
   optimizer's param group before each step.
+- **Loss weights**: ``weight_fn(batch)`` computes them on the device (NYUD2's
+  per-pixel bucket-table lookup) and takes precedence over
+  ``batch["weight"]``.
+- **Dense hooks**: the FDS hook may be a per-pixel map [N, H, W, C]; the
+  calibration and the stats pass take it as N·H·W rows.
 
 The state is mutable: a step updates the modules, the optimizer and the
 generator in place and returns the same :class:`TrainState`.
 
-Not ported yet: SGD, Adam with L2, gradient clipping, RRT head-only
-training (``retrain_fc``), ``target_scale``, ``weight_fn`` and the
-device-resident indexed mode.
+Not ported yet: SGD, gradient clipping, RRT head-only training
+(``retrain_fc``), ``target_scale`` and the device-resident indexed mode.
 """
 
 from __future__ import annotations
@@ -72,11 +77,15 @@ def set_numerics() -> None:
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """Optimization config mirroring the reference flags
-    (``imdb-wiki-dir/train.py:49-66``): the age suites train with Adam, no
-    weight decay, and a per-epoch MultiStep lr."""
+    (``imdb-wiki-dir/train.py:49-66``): Adam with a per-epoch MultiStep lr;
+    the age suites without weight decay, NYUD2 with L2 1e-4
+    (``nyud2-dir/train.py:146``)."""
 
     loss: str = "l1"
     lr: float = 1e-3
+    # torch-Adam L2: gradient += wd * param before the moments, as the JAX
+    # package's optax.add_decayed_weights before adam
+    adam_weight_decay: float = 0.0
     schedule: tuple[int, ...] = (60, 80)  # epochs at which lr drops 10x
 
 
@@ -102,6 +111,7 @@ class Trainer:
         fds_config: FDSConfig | None = None,
         train_augment: Callable | None = None,
         eval_transform: Callable | None = None,
+        weight_fn: Callable | None = None,
         device: str | torch.device | None = None,
     ):
         self.backbone = backbone
@@ -109,9 +119,11 @@ class Trainer:
         self.config = config
         self.fds_config = fds_config
         # on-device input transforms: train_augment(images, generator),
-        # eval_transform(images)
+        # eval_transform(images); weight_fn(batch) computes the loss weights
+        # on the device instead of batch["weight"]
         self.train_augment = train_augment
         self.eval_transform = eval_transform
+        self.weight_fn = weight_fn
         self.device = resolve_device(device)
         set_numerics()
         self._loss_fn = LOSS_REGISTRY[config.loss]
@@ -127,7 +139,8 @@ class Trainer:
         backbone = self.backbone.to(self.device, memory_format=torch.channels_last)
         head = self.head.to(self.device)
         params = list(backbone.parameters()) + list(head.parameters())
-        optimizer = torch.optim.Adam(params, lr=self.config.lr)
+        optimizer = torch.optim.Adam(params, lr=self.config.lr,
+                                     weight_decay=self.config.adam_weight_decay)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         fds = fds_init(self.fds_config, self.device) if self.fds_config else None
         return TrainState(step=0, backbone=backbone, head=head, optimizer=optimizer, fds=fds,
@@ -156,7 +169,8 @@ class Trainer:
             encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
                                   bucket_idx=b.get("bucket_idx"))
         pred = state.head(encoding, generator=state.generator)
-        loss = self._loss_fn(pred, b["target"], b.get("weight"))
+        weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
+        loss = self._loss_fn(pred, b["target"], weights)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at the
 age slice's shapes (N = 128 rows, D = 2048, B = 100 buckets) with the corner
-cases of the JAX tests. Marked ``cuda``: they skip where there is no GPU.
+cases of the JAX tests, and the segment-moments kernels (K3, K4) also
+against a float64 reference at shapes that take one and several row
+chunks. Marked ``cuda``: they skip where there is no GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch; there, skip the repository's conftest (which
@@ -60,6 +62,26 @@ def test_calibrate_kernels_match_plain(cuda_device, mode, clips, dtype):
 
 
 @pytest.mark.cuda
+def test_calibrate_kernels_take_many_rows(cuda_device):
+    """More row blocks (of 4 rows) than a grid's y axis holds (65,535), as
+    NYUD2's per-pixel rows need (554,496 at batch 32)."""
+    rng = np.random.default_rng(5)
+    n, d, b = 4 * 65_535 + 5, 8, 10
+    t = lambda a: torch.as_tensor(a).to(cuda_device)  # noqa: E731
+    x = t(rng.normal(size=(n, d)).astype(np.float32))
+    e = t(rng.integers(-1, b, size=n).astype(np.int32))
+    ok = t(rng.random(n) > 0.2)
+    m1, m2 = (t(rng.normal(size=(b, d)).astype(np.float32)) for _ in range(2))
+    v1, v2 = (t(rng.uniform(0.01, 3.0, size=(b, d)).astype(np.float32)) for _ in range(2))
+    args = (x, e, ok, m1, v1, m2, v2, v1.sum(1), 0.2, 5.0, "positive")
+    torch.testing.assert_close(ck.calibrate_forward(*args), calibrate_indexed(*args),
+                               rtol=1e-6, atol=1e-6)
+    bargs = (x, e, ok, v1, v2, v1.sum(1), 0.2, 5.0, "positive")
+    torch.testing.assert_close(ck.calibrate_backward(*bargs), calibrate_indexed_grad(*bargs),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_calibrate_autograd_uses_kernels(cuda_device):
     x, e, ok, stats, v1sum = _inputs(np.random.default_rng(1), cuda_device)
     ck.reset_launch_counts()
@@ -98,3 +120,62 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         ck.calibrate_forward(x.T.contiguous().T, e, ok, *stats, v1sum, 0.1, 10.0, "nonzero")
     with pytest.raises(ValueError, match="is on"):
         ck.segment_moments(x, e.cpu(), B)
+
+
+def _moments_inputs(n, d, b, dev):
+    """Features with a per-column scale (as ``test_pallas.py`` gives K4's
+    TPU version), every 7th row outside the buckets."""
+    rng = np.random.default_rng(4)
+    feats = (rng.normal(size=(n, d)) * rng.uniform(0.1, 30.0, size=(1, d))).astype(np.float32)
+    idx = rng.integers(0, b, size=n).astype(np.int32)
+    idx[::7] = -1
+    return torch.as_tensor(feats).to(dev), torch.as_tensor(idx).to(dev)
+
+
+def _float64_moments(feats, idx, b):
+    """counts, sums, sums of squares and sums of |f| in float64."""
+    valid = (idx >= 0) & (idx < b)
+    f, i = feats[valid].double(), idx[valid].long()
+    zeros = lambda: torch.zeros((b, feats.shape[1]), dtype=torch.float64, device=feats.device)  # noqa: E731
+    count = torch.zeros(b, dtype=torch.float64, device=feats.device).index_add_(
+        0, i, torch.ones_like(i, dtype=torch.float64))
+    return count, zeros().index_add_(0, i, f), zeros().index_add_(0, i, f * f), \
+        zeros().index_add_(0, i, f.abs())
+
+
+# (N, D, B): one row chunk at the age shape; 3 chunks with ragged column
+# tiles; 33 chunks at D = 128 (the NYUD2 hook width) on a 132-SM card
+MOMENT_SHAPES = [(N, D, B), (3000, 100, 21), (50_000, 128, 93)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["segment_moments", "segment_moments_v2"])
+@pytest.mark.parametrize("n,d,b", MOMENT_SHAPES)
+def test_moments_kernels_match_float64(cuda_device, kernel, n, d, b):
+    feats, idx = _moments_inputs(n, d, b, cuda_device)
+    fn, plain = getattr(ck, kernel), getattr(ck, f"{kernel}_plain")
+    ck.reset_launch_counts()
+    c, s, q = fn(feats, idx, b)
+    assert fn.launches == 1
+    count, total, total_sq, total_abs = _float64_moments(feats, idx, b)
+    torch.testing.assert_close(c.double(), count, rtol=0, atol=0)  # counts are exact
+    # float32 sums in row order, against exact ones: within 1e-5 of the
+    # bucket's sum of |f| (of f*f for the sums of squares)
+    assert bool(((s.double() - total).abs() <= 1e-5 * total_abs).all())
+    assert bool(((q.double() - total_sq).abs() <= 1e-5 * total_sq).all())
+    pc, ps, pq = plain(feats, idx, b)
+    torch.testing.assert_close(c, pc, rtol=0, atol=0)
+    # the plain one-hot matmul sums in another order
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-5 * float(total_abs.max()))
+    torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5 * float(total_sq.max()))
+    c2, s2, q2 = fn(feats, idx, b)
+    assert torch.equal(c, c2) and torch.equal(s, s2) and torch.equal(q, q2)  # deterministic
+
+
+@pytest.mark.cuda
+def test_moments_v2_rejects_bad_inputs(cuda_device):
+    feats, idx = _moments_inputs(64, 32, 8, cuda_device)
+    with pytest.raises(TypeError):
+        ck.segment_moments_v2(feats.to(torch.bfloat16), idx, 8)
+    with pytest.raises(ValueError, match="buckets"):
+        ck.segment_moments_v2(feats, idx, ck.V2_MAX_BUCKETS + 1)

@@ -1,7 +1,8 @@
 """The port's FDS state machine held against the JAX package on the CPU:
 multi-epoch update → snapshot → smooth sequences for the age, hist and depth
-groupings, edge gating, the epoch gates, empty-bucket imputation and the
-numpy state converter. Inputs are made with seeded numpy and handed to both
+groupings, edge gating, the epoch gates, empty-bucket imputation, dense
+per-pixel hooks with the split-precision moments selector, and the numpy
+state converter. Inputs are made with seeded numpy and handed to both
 sides."""
 
 import jax.numpy as jnp
@@ -86,6 +87,36 @@ def test_fds_sequence_matches_jax(rng, grouping, kw):
                              None if bidx is None else T(bidx)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     assert not np.allclose(got, feats)
+
+
+@pytest.mark.parametrize("use_kernel", [None, "v2"])
+def test_dense_depth_hook_matches_jax(rng, use_kernel):
+    """NYUD2's hook is a per-pixel map [N, H, W, C] with [N, H, W, 1] depth
+    targets: the moments (K3, or K4 with ``use_kernel="v2"``) and the
+    calibration take it as N*H*W rows, as the JAX functions do."""
+    jcfg, tcfg = _configs("depth", feature_dim=16)
+    feats = (rng.normal(size=(3, 6, 8, 16)) * rng.uniform(0.1, 30.0, size=16)).astype(np.float32)
+    depth = rng.uniform(0.5, 10.0, size=(3, 6, 8, 1)).astype(np.float32)
+    want = jfds.fds_bucket_moments(jcfg, feats, depth,
+                                   use_pallas="v2" if use_kernel == "v2" else False)
+    got = fds.fds_bucket_moments(tcfg, T(feats), T(depth), use_kernel=use_kernel)
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    # float32 sums in another order (v2: of the same bf16 split terms); the
+    # tolerance of the TPU kernel's own test (test_pallas.py:141)
+    np.testing.assert_allclose(got.total.numpy(), np.asarray(want.total), rtol=2e-6, atol=1e-5)
+    np.testing.assert_allclose(got.total_sq.numpy(), np.asarray(want.total_sq), rtol=2e-6,
+                               atol=1e-5)
+
+    jstate = jfds.fds_update_last_epoch_stats(
+        jcfg, jfds.fds_apply_moments(jcfg, jfds.fds_init(jcfg), want, 0), 1)
+    tstate = fds.fds_update_last_epoch_stats(
+        tcfg, fds.fds_apply_moments(tcfg, fds.fds_init(tcfg, device="cpu"), got, 0), 1)
+    smoothed = fds.fds_smooth(tcfg, tstate, T(feats), T(depth), 1)
+    assert smoothed.shape == feats.shape
+    np.testing.assert_allclose(smoothed.numpy(), np.asarray(jfds.fds_smooth(jcfg, jstate, feats,
+                                                                            depth, 1)),
+                               rtol=1e-4, atol=1e-4)
+    assert not np.allclose(smoothed.numpy(), feats)
 
 
 def test_age_edge_gating_matches_jax(rng):

@@ -1,9 +1,9 @@
 """The port's ops held against the JAX package on the CPU: the numpy copies
 (kernel windows, binning, LDS weights), the losses, bucket smoothing,
 calibration (against ``calibrate_gathered`` and the Pallas kernel in
-interpret mode), and segment moments (against the one-hot path and
-``pallas_moments``). The kernel-vs-plain checks that need the card are in
-``test_torch_cuda.py``.
+interpret mode), and segment moments (against the one-hot path,
+``pallas_moments`` and, for the split-precision version, ``pallas_moments_v2``).
+The kernel-vs-plain checks that need the card are in ``test_torch_cuda.py``.
 
 Inputs are made with seeded numpy and handed to both sides."""
 
@@ -20,7 +20,11 @@ from imbalanced_regression_tpu.ops import losses as jlosses
 from imbalanced_regression_tpu.ops.calibrate import calibrate_gathered as j_calibrate_gathered
 from imbalanced_regression_tpu.ops.calibrate import calibrate_mean_var as j_calibrate_mean_var
 from imbalanced_regression_tpu.ops.moments import bucket_moments as j_bucket_moments
-from imbalanced_regression_tpu.ops.pallas_kernels import pallas_calibrate, pallas_moments
+from imbalanced_regression_tpu.ops.pallas_kernels import (
+    pallas_calibrate,
+    pallas_moments,
+    pallas_moments_v2,
+)
 from imbalanced_regression_tpu.ops.smoothing import smooth_bucket_stats as j_smooth
 from imbalanced_regression_tpu_torch.ops import binning, kernels, lds, losses
 from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
@@ -265,10 +269,70 @@ def test_moments_valid_edges_and_add(rng):
     torch.testing.assert_close(got.count, kept.count, rtol=0, atol=0)
     torch.testing.assert_close(got.total, kept.total, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(got.total_sq, kept.total_sq, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="K4"):
-        bucket_moments(T(feats), T(idx), 5, use_kernel="v2")
+    # the split-precision selector takes the same mask and edges; its three
+    # bf16 terms rebuild each float32 value: 1e-6
+    v2 = bucket_moments(T(feats), T(idx), 5, valid=T(valid), edge_labels=(T(is_lo), T(is_hi)),
+                        use_kernel="v2")
+    torch.testing.assert_close(v2.count, got.count, rtol=0, atol=0)
+    torch.testing.assert_close(v2.total, got.total, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(v2.total_sq, got.total_sq, rtol=1e-6, atol=1e-6)
+    assert bool(v2.has_lo) == bool(got.has_lo) and bool(v2.has_hi) == bool(got.has_hi)
     with pytest.raises(ValueError, match="use_kernel"):
         bucket_moments(T(feats), T(idx), 5, use_kernel=False)
+
+
+@pytest.mark.parametrize("n,d,b", [(64, 32, 10), (100, 130, 21), (300, 512, 100)])
+def test_moments_v2_match_jax(rng, n, d, b):
+    """K4's plain version and the ``use_kernel="v2"`` selector against the
+    Pallas kernel in interpret mode, the JAX ``use_pallas="v2"`` selector and
+    a float64 one-hot oracle, at ``test_pallas.py``'s shapes and scales."""
+    feats = (rng.normal(size=(n, d)) * rng.uniform(0.1, 30.0, size=(1, d))).astype(np.float32)
+    idx = rng.integers(0, b, size=n).astype(np.int32)
+    idx[:2] = -1  # masked-out samples
+    plain = ck.segment_moments_v2_plain(T(feats), T(idx), b)
+    sel = bucket_moments(T(feats), T(idx), b, use_kernel="v2")
+    pal = pallas_moments_v2(jnp.asarray(feats), jnp.asarray(idx), b)
+    jsel = j_bucket_moments(jnp.asarray(feats), jnp.asarray(idx), b, use_pallas="v2")
+    onehot = np.zeros((n, b))
+    onehot[np.arange(n)[idx >= 0], idx[idx >= 0]] = 1.0
+    f64 = feats.astype(np.float64)
+    oracle = (onehot.sum(0), onehot.T @ f64, onehot.T @ f64**2)
+    for got in (plain, (sel.count, sel.total, sel.total_sq)):
+        got = [t.numpy() for t in got]
+        np.testing.assert_array_equal(got[0], oracle[0])  # counts are exact
+        for want in (pal, (jsel.count, jsel.total, jsel.total_sq), oracle):
+            np.testing.assert_array_equal(got[0], np.asarray(want[0]))
+            # float32 sums of the same split terms in another order: the
+            # tolerance of the TPU kernel's own test (test_pallas.py:141)
+            np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=2e-6, atol=1e-5)
+            np.testing.assert_allclose(got[2], np.asarray(want[2]), rtol=2e-6, atol=1e-5)
+
+
+def test_split3_matches_jax(rng):
+    from imbalanced_regression_tpu.ops.pallas_kernels import _split3
+
+    x = (rng.normal(size=(64, 16)) * np.logspace(-3, 3, 16)).astype(np.float32)
+    want = _split3(jnp.asarray(x))
+    got = ck.split3(T(x))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        # round-to-nearest-even casts and exact float32 subtractions: bit-equal
+        np.testing.assert_array_equal(g.float().numpy(), np.asarray(w.astype(jnp.float32)))
+    # three terms rebuild float32 to within its last bits
+    rebuilt = sum(h.double() for h in got).numpy()
+    np.testing.assert_allclose(rebuilt, x, rtol=2**-23, atol=0)
+
+
+def test_row_chunks():
+    """The row split is a function of the shapes and the card's SM count:
+    one chunk for the age path's batch (no second pass), enough to fill a
+    132-SM card at NYUD2's pixel batch, never under MIN_CHUNK_ROWS rows."""
+    assert ck.row_chunks(64, 2048 // 32, 132) == 1
+    assert ck.row_chunks(554_496, 128 // 32, 132) == 33  # K3: 4 x 33 = 132 blocks
+    assert ck.row_chunks(554_496, 128 // 16, 2 * 132) == 33  # K4: 8 x 33 = 264 blocks
+    assert ck.row_chunks(8192, 64, 132) == 3
+    assert ck.row_chunks(3 * ck.MIN_CHUNK_ROWS, 1, 1000) == 3
+    assert ck.row_chunks(0, 4, 132) == 1
 
 
 # ---------------------------------------------------------- kernel wrappers (CPU)
@@ -288,13 +352,17 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert g.shape == x.shape
     c, s, q = ck.segment_moments(T(x), T(e), 12)
     assert c.sum().item() == (e >= 0).sum()
-    assert [fn.launches for fn in ck.KERNEL_WRAPPERS] == [0, 0, 0]
+    c2, _, _ = ck.segment_moments_v2(T(x), T(e), 12)
+    torch.testing.assert_close(c2, c, rtol=0, atol=0)
+    assert len(ck.KERNEL_WRAPPERS) == 4
+    assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
 
 
 def test_wrappers_reject_other_devices():
     meta = torch.empty((4, 4), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ck.segment_moments(meta, torch.zeros(4, dtype=torch.int32, device="meta"), 3)
+    for fn in (ck.segment_moments, ck.segment_moments_v2):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta, torch.zeros(4, dtype=torch.int32, device="meta"), 3)
 
 
 def test_kernel_sources_and_build_key():
@@ -306,4 +374,7 @@ def test_kernel_sources_and_build_key():
     src = (ck.SOURCE_DIR / "fds_kernels.cu").read_text()
     for entry in ("fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments"):
         assert f"int {entry}(" in src
+    assert "int fds_segment_moments_v2(" in (ck.SOURCE_DIR / "moments_v2.cu").read_text()
+    assert set(ck._SIGNATURES) == {"fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
+                                   "fds_segment_moments_v2"}
     assert "--use_fast_math" not in " ".join(ck.NVCC_FLAGS)
