@@ -16,7 +16,8 @@ Phases:
    152 = 554,496 pixels, D = 128, B = 93): K1/K2 against their plain
    versions in "positive" guard mode; K3/K4 against a float64 reference
    (exact counts, sums within 1e-5 of the bucket's sum of |f| or of f*f) and
-   bit-identical across two runs; all four timed;
+   bit-identical across two runs; all four timed; K3 also on an index in
+   runs of equal buckets along rows of 152 pixels, as a depth map gives;
 4. drive the port's age train path (``tasks/age.py``: ResNet-50 in bf16 +
    LDS + FDS, three epochs on synthetic 224x224 images), with the kernel
    launch counters set to 0 just before and read just after;
@@ -25,7 +26,11 @@ Phases:
    4 steps of batch 32 on synthetic 228x304 images);
 6. one stats-pass batch of the trained depth model, whose encodings go
    through ``fds_bucket_moments`` with K3 and with K4 (``use_kernel="v2"``),
-   held against a float64 reference and each other.
+   held against a float64 reference and each other, and timed on them.
+
+Phases 4-6 also check that K3 ran the kernel its plan names for the shape:
+the short-batch kernel on the age path, the row split on the depth path.
+``k3_probe.py`` holds the measurements behind K3's design choices.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
 record per kernel and shape) and as the last line ``{"ok": true, "device":
@@ -218,6 +223,20 @@ def moments_inputs(gen, dev, n: int, d: int, b: int):
     return f, idx
 
 
+def run_idx(gen, dev, n: int, b: int, width: int = DEPTH_HW[1]):
+    """Bucket indices in runs along rows of ``width`` pixels, as a depth
+    map's rows in NHWC order give: each row a ramp from a random bucket with
+    a random slope of at most 0.2 buckets a pixel (runs of 5 or more equal
+    buckets), every 97th pixel outside the buckets."""
+    rows = -(-n // width)
+    start = b * torch.rand(rows, 1, generator=gen, device=dev)
+    slope = 0.4 * torch.rand(rows, 1, generator=gen, device=dev) - 0.2
+    ramp = start + slope * torch.arange(width, device=dev)
+    idx = ramp.floor().clamp(0, b - 1).to(torch.int32).reshape(-1)[:n].contiguous()
+    idx[::97] = -1
+    return idx
+
+
 def float64_moments(f, idx, b: int):
     """counts, sums, sums of squares and sums of |f|, in float64."""
     valid = (idx >= 0) & (idx < b)
@@ -267,11 +286,17 @@ def library_moments(f, idx, b: int):
     return lambda: torch.zeros(b, src.shape[1], device=f.device).index_add_(0, tgt, src)
 
 
+def log_plan(ck, n: int, d: int) -> None:
+    plan = ck.moments_plan(n, d, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"K3 plan at N={n} D={d}: {plan}")
+
+
 def check_moments(ck, gen, dev, n: int, d: int, b: int, record: bool, iters: int = 50) -> dict:
     """K3 and K4 against their plain versions at ``n`` rows, and two runs
     bit-identical; with ``record``, their times and bounds too (K4's at the
     age shape are logged only)."""
     f, idx = moments_inputs(gen, dev, n, d, b)
+    log_plan(ck, n, d)
     results = {}
     for name in ("segment_moments", "segment_moments_v2"):
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
@@ -301,16 +326,16 @@ def check_moments(ck, gen, dev, n: int, d: int, b: int, record: bool, iters: int
 
 def check_depth_moments(ck, gen, dev) -> dict:
     """K3 and K4 at the NYUD2 shape against a float64 reference, bit-identical
-    across two runs, and timed."""
+    across two runs, and timed; K3 also on an index in runs."""
     n, (d, b) = N_DEPTH, DEPTH
     f, idx = moments_inputs(gen, dev, n, d, b)
-    ref = float64_moments(f, idx, b)
-    library = library_moments(f, idx, b)
-    n_valid = int((idx >= 0).sum())
+    log_plan(ck, n, d)
     results = {}
-    for name in ("segment_moments", "segment_moments_v2"):
-        kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
-        got, again = kernel(f, idx, b), kernel(f, idx, b)
+    for name, idx_ in (("segment_moments", idx), ("segment_moments_v2", idx),
+                       ("segment_moments runs", run_idx(gen, dev, n, b))):
+        kernel, plain = getattr(ck, name.split()[0]), getattr(ck, f"{name.split()[0]}_plain")
+        ref = float64_moments(f, idx_, b)
+        got, again = kernel(f, idx_, b), kernel(f, idx_, b)
         torch.cuda.synchronize()
         identical = all(torch.equal(a, w) for a, w in zip(got, again))
         rel_s, rel_q = check_against_float64(name, got, ref)
@@ -318,10 +343,13 @@ def check_depth_moments(ck, gen, dev) -> dict:
             f"sumsq within {rel_q:.3e} of sum f^2 (float64 reference), bit-identical across two "
             f"runs: {identical}")
         assert identical, f"{name} differs between two runs"
+        n_valid = int((idx_ >= 0).sum())
         nbytes, flops, bf16 = moments_bound(n_valid, n, d, b, name.endswith("v2"))
         err = max(max_err(a, w) for a, w in zip(got, ref[:3]))
-        results[name] = timed(lambda k=kernel: k(f, idx, b), lambda p=plain: p(f, idx, b),
-                              library, nbytes, flops, err, shape_tag(n, d, b), 10, bf16)
+        tag = shape_tag(n, d, b) + (",idx=runs" if name.endswith("runs") else "")
+        results[name] = timed(lambda k=kernel, i=idx_: k(f, i, b),
+                              lambda p=plain, i=idx_: p(f, i, b), library_moments(f, idx_, b),
+                              nbytes, flops, err, tag, 10, bf16)
     return results
 
 
@@ -372,6 +400,8 @@ def main_path_phase(ck) -> dict:
     assert all(math.isfinite(v) for v in result["test"].values()), result["test"]
     for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
         assert launches[name] > 0, f"{name} was not launched on the age path"
+    log(f"age path: K3 launches by kernel {dict(ck.segment_moments.kernels)}")
+    assert ck.segment_moments.kernels == {"short": launches["segment_moments"]}
     assert result["history"][-1]["fds_calibrating"], "the last epoch calibrated with fds_init stats"
     fds = result["final_fds"]
     assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any()
@@ -398,6 +428,8 @@ def depth_path_phase(ck) -> tuple[dict, dict]:
     assert math.isfinite(result["best_rmse"]), result["best_rmse"]
     for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
         assert launches[name] > 0, f"{name} was not launched on the depth path"
+    log(f"depth path: K3 launches by kernel {dict(ck.segment_moments.kernels)}")
+    assert ck.segment_moments.kernels == {"split": launches["segment_moments"]}
     assert result["history"][-1]["fds_calibrating"], "the last epoch calibrated with fds_init stats"
     fds = result["state"].fds
     assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any()
@@ -432,6 +464,7 @@ def depth_stats_phase(ck, result) -> dict:
         launches = {fn.__name__: fn.launches for fn in ck.KERNEL_WRAPPERS}
     log(f"depth stats-pass encodings {tuple(enc.shape)}: launches {launches}")
     assert launches["segment_moments"] == 1 and launches["segment_moments_v2"] == 1, launches
+    assert ck.segment_moments.kernels == {"split": 1}, ck.segment_moments.kernels
     idx = bin_index_depth(target.reshape(-1), cfg.bucket_num, cfg.bucket_start) - cfg.bucket_start
     rows = enc.reshape(-1, cfg.feature_dim)
     ref = float64_moments(rows, idx, cfg.num_buckets)
@@ -444,9 +477,10 @@ def depth_stats_phase(ck, result) -> dict:
     assert torch.equal(m3.count, m4.count)
     assert bool(((m3.total - m4.total).abs().double() <= 2e-5 * ref[3]).all())
     assert bool(((m3.total_sq - m4.total_sq).abs().double() <= 2e-5 * ref[2]).all())
-    k3 = time_ms(lambda: ck.segment_moments(rows, idx, cfg.num_buckets), iters=10)
-    k4 = time_ms(lambda: ck.segment_moments_v2(rows, idx, cfg.num_buckets), iters=10)
-    log(f"on these encodings: K3 {k3:.4f} ms, K4 {k4:.4f} ms per call (wrapper)")
+    k3 = lambda: ck.segment_moments(rows, idx, cfg.num_buckets)  # noqa: E731
+    k4 = lambda: ck.segment_moments_v2(rows, idx, cfg.num_buckets)  # noqa: E731
+    log(f"on these encodings: K3 {time_ms(k3, iters=10):.4f} ms, K4 {time_ms(k4, iters=10):.4f} ms "
+        f"per call (wrapper); device K3 {graph_ms(k3):.4f} ms, K4 {graph_ms(k4):.4f} ms")
     return launches
 
 
@@ -552,15 +586,17 @@ def main(argv=None) -> int:
     if args.profile:
         profile_phase()
 
-    kernels = [{"name": name, "route": "cuda",
+    kernels = []
+    for records, launches in ((age_records, age_launches), (depth_records, depth_launches)):
+        for key, r in records.items():
+            name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
+            kernels.append({
+                "name": name, "route": "cuda",
                 "source": f"imbalanced_regression_tpu_torch/csrc/{SOURCES[name]}",
                 "replaces": REPLACES[name], "shape": r["shape"], "launches": launches[name],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": r["library_ms"]}
-               for records, launches in ((age_records, age_launches),
-                                         (depth_records, depth_launches))
-               for name, r in records.items()]
+                "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -165,37 +165,136 @@ int launch_calibrate(const T* x, const int* e, const bool* ok, const float* m1,
 // (reached through pallas_moments): per bucket b, count[b], sum[b, :] and
 // sum-of-squares[b, :] of the feature rows with idx == b; rows whose idx is
 // outside [0, B) (the -1 of padding) contribute nothing. float32
-// accumulation.
+// accumulation and no float atomics: every sum is taken in an order fixed
+// by (N, D, B, the launch plan and the card), so two calls give the same
+// bits.
 //
-// Bound on the H100: memory. Each feature value is read once and costs
-// three operations. On the age path (N = 64, D = 2048, B = 100) the outputs
-// (1.6 MB) outweigh the input and launch overhead dominates; on the NYUD2
-// stats pass (N = 32 x 114 x 152 = 554,496 pixels, D = 128, B = 93) the
-// 284 MB of features are the traffic: ~0.085 ms at 3.35 TB/s.
+// Bound on the H100: memory. Each valid feature value is read once and
+// costs three operations. The port runs K3 at two shapes, with a kernel for
+// each; the wrapper's moments_plan picks one from N:
+// - the age stats pass (N = 64, D = 2048, B = 100): the outputs (1.6 MB)
+//   outweigh the input, ~0.6 us at 3.35 TB/s, below the launch itself:
+//   moments_short_kernel, sized by the work;
+// - the NYUD2 stats pass (N = 32 x 114 x 152 = 554,496 pixels, D = 128,
+//   B = 93): the 284 MB of features are the traffic, ~0.076 ms:
+//   moments_split_kernel.
 //
-// Design: deterministic, with no float atomics. The TPU kernel contracts a
-// one-hot [B, T] tile with the features on the MXU and carries the sums
-// across the sequential grid. Here the grid is (32-column tiles of D) x
-// (row chunks, moments_common.cuh): at D = 128 the four column tiles alone
-// would leave 128 of 132 SMs idle, so the rows are cut into chunks until
-// the blocks fill the card, and a second pass adds the chunks' partials in
-// chunk order. Within a block each warp takes every nwarps-th row of the
-// chunk; a lane owns one column, so a row is one coalesced 128-byte load,
-// and the lane adds it into the warp's own [B, 32] accumulators in shared
-// memory (one lane per address: no races). A warp starts the loads of U
-// rows before it adds any of them, so U loads per warp are in flight. At
-// the end the block adds its warps' accumulators in warp order. The order
-// of every sum is fixed by (N, chunks, nwarps), so two runs give the same
-// bits. Counts are kept only by the blocks of column tile 0 (as
-// pl.when(i_d == 0) does), by lane 0 of each warp.
+// The TPU kernel contracts a one-hot [B, T] tile with the features on the
+// MXU and carries the sums across its sequential grid; neither kernel here
+// builds a one-hot.
+
+// Short-batch kernel. A warp owns one bucket and 128 columns (four per
+// lane) and keeps their sums in registers, so there is no accumulator to
+// zero in shared memory and no epilogue across warps: each output is
+// written once. The block stages the batch's indices in shared memory; a
+// warp finds its bucket's rows 32 at a time by ballot, then loads them
+// kShortRowsInFlight at a time and adds them in row order. Each feature row
+// is read by one warp per column tile. Counts are the ballots' popcounts,
+// written by the warps of column tile 0. Grid: (128-column tiles) x (groups
+// of kShortWarps buckets).
+constexpr int kShortMaxRows = 4096;    // indices staged in shared memory (16 KB)
+constexpr int kShortWarps = 8;         // buckets per block
+constexpr int kShortRowsInFlight = 4;  // feature rows a warp loads before it adds them
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kShortWarps * 32) moments_short_kernel(
+    const T* __restrict__ f, const int* __restrict__ idx, float* __restrict__ counts,
+    float* __restrict__ sums, float* __restrict__ sumsq, int n, int d, int nb) {
+  __shared__ int sidx[kShortMaxRows];
+  for (int r = threadIdx.x; r < n; r += blockDim.x) sidx[r] = __ldg(idx + r);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.y * kShortWarps + (threadIdx.x >> 5);
+  if (b >= nb) return;  // the same for the whole warp
+  const int col = blockIdx.x * 128 + lane * 4;
+  const int rem = d - col;  // columns from this lane's first to the row's end (<= 0: none)
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+  int count = 0;
+  int r0 = -32;
+  unsigned rows = 0u;  // rows of bucket b among r0 .. r0 + 31 not taken yet
+  for (;;) {
+    // the next kShortRowsInFlight rows of bucket b, in row order (-1: none left)
+    int r[kShortRowsInFlight];
+#pragma unroll
+    for (int k = 0; k < kShortRowsInFlight; ++k) {
+      while (rows == 0u && r0 + 32 < n) {  // uniform across the warp
+        r0 += 32;
+        rows = __ballot_sync(0xffffffffu, r0 + lane < n && sidx[r0 + lane] == b);
+        count += __popc(rows);
+      }
+      r[k] = rows ? r0 + __ffs(rows) - 1 : -1;
+      rows &= rows - 1u;
+    }
+    if (r[0] < 0) break;
+    // unconditional loads (see moments_split_kernel): a missing row loads
+    // row r[0] and a lane past the last column column 0, and neither is added
+    float x[kShortRowsInFlight][4];
+#pragma unroll
+    for (int k = 0; k < kShortRowsInFlight; ++k)
+      load4<VEC>(f + static_cast<size_t>(r[k] >= 0 ? r[k] : r[0]) * d + (rem > 0 ? col : 0),
+                 rem > 0 ? rem : d, x[k]);
+#pragma unroll
+    for (int k = 0; k < kShortRowsInFlight; ++k) {
+      if (r[k] < 0 || rem <= 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j] += x[k][j];
+        q[j] += __fmul_rn(x[k][j], x[k][j]);
+      }
+    }
+  }
+  if (rem > 0) {
+    const size_t out = static_cast<size_t>(b) * d + col;
+    store4<VEC>(sums + out, rem, s);
+    store4<VEC>(sumsq + out, rem, q);
+  }
+  if (blockIdx.x == 0 && lane == 0) counts[b] = static_cast<float>(count);
+}
+
+// Row-split kernel. The grid is (32-column tiles of D) x (row chunks,
+// moments_common.cuh): at D = 128 the four column tiles alone would leave
+// 128 of 132 SMs idle, so the rows are cut into chunks until the blocks fill
+// the card, and a second pass adds the chunks' partials in chunk order. A
+// lane owns one column, so a row is one coalesced load. Each warp keeps its
+// own (sum, sum of squares) per bucket and lane in shared memory, one float2
+// (one 8-byte load and store per update), and the block its counts, as
+// integers. At the end the block adds its warps' sums in warp order.
 //
-// Outputs: counts [chunks][nb], sums and sumsq [chunks][nb][d] (with one
-// chunk, the final outputs).
-template <typename T, int U>
-__global__ void __launch_bounds__(256) moments_kernel(
+// A warp takes batches of U = kSplitRowsInFlight consecutive rows of its
+// chunk (warp w the batches w, w + nwarps, ...): lane u loads the index of row u and stages
+// the batch's buckets in the warp's shared memory, from where every lane
+// reads four at a time. While the warp adds one batch, the loads of the next
+// batch's rows (only rows inside the buckets) and the index after that are
+// in flight. It adds a batch in groups of kMergeRows rows: the rows of one
+// bucket are first added together in registers, in row order (the buckets
+// are the same across the warp, so this is uniform work), which leaves one
+// row per bucket, the leader; then every row of the group loads its slot,
+// adds and stores it back, in three phases with no branch: a leader's slot is
+// its bucket's, the other rows' a spare slot (bucket nb) that no output
+// reads. With no two leaders on one address the phases pipeline, instead of
+// running one read-add-write chain per row, each waiting for the last in
+// case two rows share a bucket. Integer adds do not depend on their
+// order, so the counts are shared-memory atomics (one lane per warp). The
+// order of every float sum (row order within a group, then group, batch,
+// warp and chunk order) is fixed by (N, chunks, nwarps).
+constexpr int kMergeRows = 4;  // a group: the four buckets of one 16-byte load
+// 32 rows (16 KB per SM of 8 warps at D = 128) cover HBM latency by
+// Little's law; 16 were 11-13% slower on the H100.
+constexpr int kSplitRowsInFlight = 32;
+
+// Shared memory of the row split: per warp the (sum, sum of squares) slots
+// [nb + 1][32] and the staged buckets of two batches [2][32], and the
+// block's counts [nb + 1].
+inline int split_bytes_per_warp(int nb) { return ((nb + 1) * 32 * 2 + 2 * 32) * 4; }
+inline int split_bytes_per_block(int nb) { return (nb + 1) * 4; }
+
+template <typename T>
+__global__ void __launch_bounds__(256) moments_split_kernel(
     const T* __restrict__ f, const int* __restrict__ idx, float* __restrict__ counts,
     float* __restrict__ sums, float* __restrict__ sumsq, int n, int d, int nb, int chunk_rows) {
-  extern __shared__ float smem[];
+  constexpr int U = kSplitRowsInFlight;
+  static_assert(U % kMergeRows == 0 && U <= 32, "one index per lane, whole merge groups");
+  extern __shared__ float2 smem2[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -203,33 +302,110 @@ __global__ void __launch_bounds__(256) moments_kernel(
   const int chunk = blockIdx.y;
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
-  const int acc_len = 2 * nb * 32;  // per warp: sums [nb][32], then sumsq [nb][32]
-  float* acc = smem + warp * acc_len;
-  float* cnt = smem + nwarps * acc_len;  // [nwarps][nb]
+  const int slots = nb + 1;  // slot nb: the spare slot
+  float2* acc = smem2 + warp * slots * 32 + lane;  // acc[b * 32]: this lane's slot of bucket b
+  int* staged = reinterpret_cast<int*>(smem2 + nwarps * slots * 32) + warp * 2 * 32;  // [2][32]
+  int* cnt = reinterpret_cast<int*>(smem2 + nwarps * slots * 32) + nwarps * 2 * 32;   // [slots]
   const bool do_count = blockIdx.x == 0;
 
-  const int total = nwarps * acc_len + nwarps * nb;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) smem[i] = 0.f;
+  for (int i = threadIdx.x; i < nwarps * slots * 32; i += blockDim.x)
+    smem2[i] = make_float2(0.f, 0.f);
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) cnt[i] = 0;
   __syncthreads();
 
-  for (int r0 = r_begin + warp; r0 < r_end; r0 += nwarps * U) {
-    int b[U];
-    float v[U];
+  // Batch r0's buckets into staged[buf] (-1: past the chunk or outside [0, nb)).
+  auto stage = [&](int r0, int raw, int buf) {
+    if (lane < U) staged[buf * 32 + lane] = r0 + lane < r_end && raw >= 0 && raw < nb ? raw : -1;
+    __syncwarp();
+  };
+  // Every load below is unconditional, from an address inside the arrays: a
+  // load under a predicate whose result is then selected compiles to a load
+  // into a scratch register and a move that waits for it, and with the
+  // scratch register reused, only a few loads are in flight at a time. So
+  // the index loads clamp to the chunk's last row, and a row outside the
+  // buckets loads row r0 (a lane past the last column, the last column):
+  // none of these values reaches an output.
+  auto load_index = [&](int r0) { return __ldg(idx + min(r0 + lane, r_end - 1)); };
+  auto load_rows = [&](int r0, int buf, float (&v)[U]) {
+    const T* rows = f + static_cast<size_t>(r0) * d + min(col, d - 1);
+    const int4* b4 = reinterpret_cast<const int4*>(staged + buf * 32);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int r = r0 + u * nwarps;
-      const bool in = r < r_end;
-      b[u] = in ? __ldg(idx + r) : -1;
-      v[u] = in && col < d ? to_float(f[static_cast<size_t>(r) * d + col]) : 0.f;
+    for (int g = 0; g < U; g += 4) {
+      const int4 b = b4[g / 4];
+      v[g] = to_float(rows[b.x >= 0 ? g * d : 0]);
+      v[g + 1] = to_float(rows[b.y >= 0 ? (g + 1) * d : 0]);
+      v[g + 2] = to_float(rows[b.z >= 0 ? (g + 2) * d : 0]);
+      v[g + 3] = to_float(rows[b.w >= 0 ? (g + 3) * d : 0]);
     }
+  };
+  auto add_rows = [&](int buf, const float (&v)[U]) {
+    const int4* b4 = reinterpret_cast<const int4*>(staged + buf * 32);
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (b[u] < 0 || b[u] >= nb) continue;  // the same for the whole warp
-      if (col < d) {
-        acc[b[u] * 32 + lane] += v[u];
-        acc[(nb + b[u]) * 32 + lane] += __fmul_rn(v[u], v[u]);
+    for (int g = 0; g < U; g += kMergeRows) {
+      const int4 b4g = b4[g / kMergeRows];
+      const int b[kMergeRows] = {b4g.x, b4g.y, b4g.z, b4g.w};
+      float s[kMergeRows], q[kMergeRows];
+      bool lead[kMergeRows];  // the group's first row of its bucket
+#pragma unroll
+      for (int k = 0; k < kMergeRows; ++k) {
+        s[k] = v[g + k];
+        q[k] = __fmul_rn(s[k], s[k]);
+        lead[k] = b[k] >= 0;
       }
-      if (do_count && lane == 0) cnt[warp * nb + b[u]] += 1.f;
+      // each row joins the earlier leader of its bucket, in row order
+#pragma unroll
+      for (int k = 1; k < kMergeRows; ++k) {
+#pragma unroll
+        for (int j = 0; j < k; ++j) {
+          if (lead[j] && b[j] == b[k]) {
+            s[j] += s[k];
+            q[j] += q[k];
+            lead[k] = false;
+          }
+        }
+      }
+      float2* p[kMergeRows];
+      float2 a[kMergeRows];
+#pragma unroll
+      for (int k = 0; k < kMergeRows; ++k) p[k] = acc + (lead[k] ? b[k] : nb) * 32;
+#pragma unroll
+      for (int k = 0; k < kMergeRows; ++k) a[k] = *p[k];
+#pragma unroll
+      for (int k = 0; k < kMergeRows; ++k) *p[k] = make_float2(a[k].x + s[k], a[k].y + q[k]);
+    }
+    if (do_count && lane == 0) {
+#pragma unroll
+      for (int g = 0; g < U; g += 4) {
+        const int4 b = b4[g / 4];
+        if (b.x >= 0) atomicAdd(cnt + b.x, 1);
+        if (b.y >= 0) atomicAdd(cnt + b.y, 1);
+        if (b.z >= 0) atomicAdd(cnt + b.z, 1);
+        if (b.w >= 0) atomicAdd(cnt + b.w, 1);
+      }
+    }
+  };
+
+  const int stride = nwarps * U;
+  const int first = r_begin + warp * U;
+  if (first < r_end) {  // the same for the whole warp
+    stage(first, load_index(first), 0);
+    float v[U];
+    load_rows(first, 0, v);
+    int raw = load_index(first + stride);
+    int buf = 0;
+    for (int r0 = first; r0 < r_end; r0 += stride) {
+      const int next = r0 + stride;
+      float vn[U];
+      if (next < r_end) {  // the next batch's loads, in flight while this one is added
+        stage(next, raw, buf ^ 1);
+        load_rows(next, buf ^ 1, vn);
+        raw = load_index(next + stride);
+      }
+      add_rows(buf, v);
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = vn[u];
+      buf ^= 1;
+      __syncwarp();  // staged[buf ^ 1] was read above; the next batch overwrites it
     }
   }
   __syncthreads();
@@ -241,49 +417,90 @@ __global__ void __launch_bounds__(256) moments_kernel(
     if (c >= d) continue;
     float s = 0.f, q = 0.f;
     for (int w = 0; w < nwarps; ++w) {
-      s += smem[w * acc_len + b * 32 + l];
-      q += smem[w * acc_len + (nb + b) * 32 + l];
+      const float2 a = smem2[(w * slots + b) * 32 + l];
+      s += a.x;
+      q += a.y;
     }
     sums[out + static_cast<size_t>(b) * d + c] = s;
     sumsq[out + static_cast<size_t>(b) * d + c] = q;
   }
-  if (do_count) {
-    for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-      float c = 0.f;
-      for (int w = 0; w < nwarps; ++w) c += cnt[w * nb + b];
-      counts[static_cast<size_t>(chunk) * nb + b] = c;
-    }
-  }
+  if (do_count)
+    for (int b = threadIdx.x; b < nb; b += blockDim.x)
+      counts[static_cast<size_t>(chunk) * nb + b] = static_cast<float>(cnt[b]);
 }
 
-constexpr int kMomentsRowsInFlight = 16;  // U: rows a warp loads before it adds them
+// The launch plans of fds_segment_moments (ops/cuda_kernels.py: moments_plan).
+constexpr int kShortBatch = 0;
+constexpr int kRowSplit = 1;
+
+// The card's opt-in shared memory per block, read once per device.
+int max_shared_memory(int dev) {
+  static int cached[64] = {};
+  if (dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0)
+    cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cached[dev];
+}
+
+template <typename T>
+int launch_short(const T* f, const int* idx, float* counts, float* sums, float* sumsq, int n,
+                 int d, int nb, cudaStream_t stream) {
+  if (n > kShortMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((d + 127) / 128, (nb + kShortWarps - 1) / kShortWarps);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = d % 4 == 0 && aligned(f, 4 * sizeof(T)) && aligned(sums, 16) &&
+                   aligned(sumsq, 16);
+  if (vec)
+    moments_short_kernel<T, true><<<grid, kShortWarps * 32, 0, stream>>>(f, idx, counts, sums,
+                                                                          sumsq, n, d, nb);
+  else
+    moments_short_kernel<T, false><<<grid, kShortWarps * 32, 0, stream>>>(f, idx, counts, sums,
+                                                                           sumsq, n, d, nb);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // With chunks > 1 the first pass writes the ws_* workspaces ([chunks][nb]
 // and [chunks][nb][d]) and the second pass the outputs.
 template <typename T>
-int launch_moments(const T* f, const int* idx, float* counts, float* sums, float* sumsq,
-                   float* ws_counts, float* ws_sums, float* ws_sumsq, int n, int d, int nb,
-                   int chunks, cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
+int launch_split(const T* f, const int* idx, float* counts, float* sums, float* sumsq,
+                 float* ws_counts, float* ws_sums, float* ws_sumsq, int n, int d, int nb,
+                 int chunks, cudaStream_t stream) {
+  int dev = 0;
   cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const int per_warp = (2 * nb * 32 + nb) * static_cast<int>(sizeof(float));
-  int nwarps = max_smem / per_warp;
-  if (nwarps > 8) nwarps = 8;
-  if (nwarps < 1 || d == 0 || chunks < 1 || chunks > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = nwarps * per_warp;
-  auto kernel = moments_kernel<T, kMomentsRowsInFlight>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int max_smem = max_shared_memory(dev);
+  const int nwarps = min(8, (max_smem - split_bytes_per_block(nb)) / split_bytes_per_warp(nb));
+  if (nwarps < 1 || chunks < 1 || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = moments_split_kernel<T>;
+  // this instance may take the card's whole opt-in shared memory: set once per device
+  static unsigned long long opted_in = 0;
+  if (!(opted_in >> dev & 1ull)) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    opted_in |= 1ull << dev;
+  }
   const bool split = chunks > 1;
   const dim3 grid((d + 31) / 32, chunks);
-  kernel<<<grid, nwarps * 32, smem, stream>>>(f, idx, split ? ws_counts : counts,
-                                              split ? ws_sums : sums, split ? ws_sumsq : sumsq,
-                                              n, d, nb, rows_per_chunk(n, chunks));
+  const int smem = nwarps * split_bytes_per_warp(nb) + split_bytes_per_block(nb);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(
+      f, idx, split ? ws_counts : counts, split ? ws_sums : sums, split ? ws_sumsq : sumsq, n, d,
+      nb, rows_per_chunk(n, chunks));
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || !split) return err;
   return launch_reduce_chunks(ws_counts, ws_sums, ws_sumsq, counts, sums, sumsq, chunks, nb, d,
                               stream);
+}
+
+template <typename T>
+int launch_moments(const T* f, const int* idx, float* counts, float* sums, float* sumsq,
+                   float* ws_counts, float* ws_sums, float* ws_sumsq, int n, int d, int nb,
+                   int chunks, int kernel, cudaStream_t stream) {
+  if (n < 0 || d < 1 || nb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0) return static_cast<int>(cudaGetLastError());
+  if (kernel == kShortBatch)
+    return launch_short(f, idx, counts, sums, sumsq, n, d, nb, stream);
+  if (kernel == kRowSplit)
+    return launch_split<T>(f, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb,
+                           chunks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -310,17 +527,24 @@ int fds_calibrate_bwd(const float* g, const int* e, const bool* ok, const float*
                                        nb, lo, hi, positive, static_cast<cudaStream_t>(stream));
 }
 
-// ws_*: workspaces for chunks > 1 (may be null with one chunk).
+// The most rows the short-batch kernel takes (ops/cuda_kernels.py checks
+// its plan's threshold against this when it loads the library).
+int fds_moments_short_max_rows() { return kShortMaxRows; }
+
+// kernel 0: the short-batch kernel (n <= fds_moments_short_max_rows(), one
+// chunk); kernel 1: the row split into `chunks` chunks. ws_*: workspaces for
+// chunks > 1 (may be null with one chunk).
 int fds_segment_moments(const void* f, int f_bf16, const int* idx, float* counts, float* sums,
                         float* sumsq, float* ws_counts, float* ws_sums, float* ws_sumsq, int n,
-                        int d, int nb, int chunks, void* stream) {
+                        int d, int nb, int chunks, int kernel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kernel == kShortBatch && chunks != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (f_bf16)
     return launch_moments<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(f), idx, counts,
                                          sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb,
-                                         chunks, s);
+                                         chunks, kernel, s);
   return launch_moments<float>(static_cast<const float*>(f), idx, counts, sums, sumsq, ws_counts,
-                               ws_sums, ws_sumsq, n, d, nb, chunks, s);
+                               ws_sums, ws_sumsq, n, d, nb, chunks, kernel, s);
 }
 
 }  // extern "C"

@@ -14,8 +14,10 @@ Four kernels in ``csrc/`` replace the Pallas TPU kernels of the JAX package
   split on the tensor cores (``pallas_moments_v2`` / ``_moments_v2_kernel``
   and ``_split3``; ``moments_v2.cu``).
 
-K3 and K4 cut the rows into chunks (:func:`row_chunks`) and add the chunks'
-partials in a fixed order, so both are deterministic.
+K3 runs one of two kernels, chosen by :func:`moments_plan` from the shapes:
+a short-batch kernel for a few thousand rows or fewer, and a row split for
+more. The row split, and K4, cut the rows into chunks (:func:`row_chunks`)
+and add the chunks' partials in a fixed order, so both are deterministic.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` (all at once, one
 process per file) and linked into a shared library with a plain C
@@ -28,6 +30,7 @@ tensor on the CPU. Each wrapper counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -35,6 +38,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -55,8 +59,10 @@ _SIGNATURES = {
     "fds_calibrate_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
     # g, e, ok, v1, v2, v1sum, out, n, d, nb, lo, hi, positive, stream
     "fds_calibrate_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
-    # f, f_bf16, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
-    "fds_segment_moments": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # f, f_bf16, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks,
+    # kernel, stream
+    "fds_segment_moments": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "fds_moments_short_max_rows": (),
     # f, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
     "fds_segment_moments_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -114,27 +120,36 @@ def build_library() -> Path:
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
-    point's argument types declared."""
+    point's argument types declared. Raises if K3's short-batch kernel
+    takes another row count than :func:`moments_plan` sends it."""
     lib = ctypes.CDLL(str(build_library()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
+    if lib.fds_moments_short_max_rows() != SHORT_BATCH_MAX_ROWS:
+        raise RuntimeError(f"the short-batch kernel takes {lib.fds_moments_short_max_rows()} rows, "
+                           f"SHORT_BATCH_MAX_ROWS is {SHORT_BATCH_MAX_ROWS}")
     return lib
 
 
-def _launch(name: str, *args) -> None:
-    err = getattr(load_library(), name)(*args, torch.cuda.current_stream().cuda_stream)
+def _launch(name: str, device_index: int, *args) -> None:
+    """Call entry point ``name`` with ``args`` and the current stream of
+    the device, taken as its raw handle (a ``torch.cuda.Stream`` object
+    costs several microseconds a call, more than the launch itself at the
+    age shapes)."""
+    stream = torch._C._cuda_getCurrentRawStream(device_index)
+    err = getattr(load_library(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
         raise ValueError(f"unsupported device {t.device}")
-    return False
+    return True
 
 
 def _check(name: str, t: torch.Tensor, dtypes, shape, device) -> None:
@@ -182,9 +197,9 @@ def calibrate_forward(x, e, ok, m1, v1, m2, v2, v1sum, clip_min: float, clip_max
         _check(name, t, _F32, (b, d), dev)
     _check("v1sum", v1sum, _F32, (b,), dev)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _launch("fds_calibrate_fwd", x.data_ptr(), int(x.dtype == torch.bfloat16), e.data_ptr(),
-            ok.data_ptr(), m1.data_ptr(), v1.data_ptr(), m2.data_ptr(), v2.data_ptr(),
-            v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min, clip_max, positive)
+    _launch("fds_calibrate_fwd", x.get_device(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+            e.data_ptr(), ok.data_ptr(), m1.data_ptr(), v1.data_ptr(), m2.data_ptr(),
+            v2.data_ptr(), v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min, clip_max, positive)
     calibrate_forward.launches += 1
     return out
 
@@ -206,9 +221,9 @@ def calibrate_backward(g, e, ok, v1, v2, v1sum, clip_min: float, clip_max: float
     _check("v2", v2, _F32, (b, d), dev)
     _check("v1sum", v1sum, _F32, (b,), dev)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _launch("fds_calibrate_bwd", g.data_ptr(), e.data_ptr(), ok.data_ptr(), v1.data_ptr(),
-            v2.data_ptr(), v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min, clip_max,
-            positive)
+    _launch("fds_calibrate_bwd", g.get_device(), g.data_ptr(), e.data_ptr(), ok.data_ptr(),
+            v1.data_ptr(), v2.data_ptr(), v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min,
+            clip_max, positive)
     calibrate_backward.launches += 1
     return out
 
@@ -293,51 +308,94 @@ def segment_moments_v2_plain(features, idx, num_buckets: int):
     return onehot.sum(0), contract(f), contract(f * f)
 
 
-def _moments_launch(name: str, features, idx, num_buckets: int, col_tiles: int,
-                    blocks_per_sm: int, *flags):
+def _moments_launch(name: str, features, idx, num_buckets: int, chunks: int, head=(), tail=()):
     """Allocate the outputs (and, with several row chunks, the workspaces)
-    and launch one of the segment-moments entry points."""
+    and launch one of the segment-moments entry points with ``head`` after
+    the features and ``tail`` after the chunk count. Returns (counts [B],
+    sums [B, D], sums of squares [B, D]), views of one buffer."""
     n, d = features.shape
     dev = features.device
-    chunks = row_chunks(n, col_tiles, blocks_per_sm * _sm_count(dev.index))
-    counts = torch.empty((num_buckets,), dtype=torch.float32, device=dev)
-    sums = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
-    sumsq = torch.empty((num_buckets, d), dtype=torch.float32, device=dev)
-    # workspaces: partial counts [chunks, B], sums and sums of squares
-    # [chunks, B, D]; held until the launches are enqueued (after that the
-    # caching allocator hands their blocks only to later work on this stream)
-    ws = []
-    if chunks > 1:
-        ws = [torch.empty((chunks, num_buckets), dtype=torch.float32, device=dev),
-              torch.empty((chunks, num_buckets, d), dtype=torch.float32, device=dev),
-              torch.empty((chunks, num_buckets, d), dtype=torch.float32, device=dev)]
-    ws_ptrs = [t.data_ptr() for t in ws] or [None] * 3
-    _launch(name, features.data_ptr(), *flags, idx.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-            sumsq.data_ptr(), *ws_ptrs, n, d, num_buckets, chunks)
-    return counts, sums, sumsq
+    per = num_buckets * d
+    # one buffer: sums [B, D], sums of squares [B, D], then counts [B] (last,
+    # so the [B, D] blocks keep the buffer's 16-byte alignment)
+    out = torch.empty((2 * per + num_buckets,), dtype=torch.float32, device=dev)
+    # workspaces: partial sums and sums of squares [chunks, B, D], partial
+    # counts [chunks, B]; held until the launches are enqueued (after that
+    # the caching allocator hands the block only to later work on this stream)
+    ws = torch.empty((chunks * (2 * per + num_buckets),), dtype=torch.float32, device=dev) \
+        if chunks > 1 else None
+
+    def pointers(buf, slots):  # counts, sums, sums of squares
+        p = buf.data_ptr()
+        return p + 8 * slots * per, p, p + 4 * slots * per
+
+    ws_ptrs = pointers(ws, chunks) if ws is not None else (None,) * 3
+    _launch(name, features.get_device(), features.data_ptr(), *head, idx.data_ptr(),
+            *pointers(out, 1), *ws_ptrs, n, d, num_buckets, chunks, *tail)
+    # one split and two views: each tensor op costs microseconds of host
+    # time, as much as the launch at the age shapes
+    sums, sumsq, counts = out.split_with_sizes((per, per, num_buckets))
+    return counts, sums.view(num_buckets, d), sumsq.view(num_buckets, d)
 
 
 def _check_moments_inputs(features, idx, dtypes) -> None:
     n, d = features.shape
+    # what the kernels take, in one expression; only on a mismatch do the
+    # checks below run one by one, to name it
+    if (d > 0 and features.dtype in dtypes and idx.dtype == torch.int32 and idx.shape == (n,)
+            and features.is_contiguous() and idx.is_contiguous()
+            and idx.get_device() == features.get_device()):
+        return
     _check("features", features, dtypes, (n, d), features.device)
     _check("idx", idx, (torch.int32,), (n,), features.device)
     if d == 0:
         raise ValueError("features need at least one column")
 
 
+# K3 takes its short-batch kernel up to this many rows, the most indices
+# it stages in shared memory (kShortMaxRows in csrc/fds_kernels.cu)
+SHORT_BATCH_MAX_ROWS = 4096
+_K3_KERNELS = {"short": 0, "split": 1}  # fds_segment_moments' kernel codes
+
+
+class MomentsPlan(NamedTuple):
+    """How K3 runs: ``kernel`` "short" (one pass sized by the batch, for
+    ``N <= SHORT_BATCH_MAX_ROWS``) or "split" (the row split), in
+    ``chunks`` row chunks (1: no second pass)."""
+
+    kernel: str
+    chunks: int
+
+
+@functools.cache
+def moments_plan(n: int, d: int, sm_count: int) -> MomentsPlan:
+    """K3's launch plan for ``n`` rows of ``d`` features on a card with
+    ``sm_count`` SMs. The buckets and the feature type do not enter it; as
+    it depends on nothing else, the order of every sum, and so the bits of
+    the result, is the same from call to call."""
+    if n <= SHORT_BATCH_MAX_ROWS:
+        return MomentsPlan("short", 1)
+    # 32-column tiles; one block per SM (a block holds 8 warps' [B, 32]
+    # accumulators, ~190 kB of shared memory at B = 93)
+    return MomentsPlan("split", row_chunks(n, -(-d // 32), sm_count))
+
+
 def segment_moments(features, idx, num_buckets: int):
     """K3: per-bucket (count [B], sum [B, D], sum of squares [B, D]) of
     ``features`` [N, D] float32/bf16 grouped by ``idx`` [N] int32; an index
-    outside [0, B) (the -1 of padding) is ignored. Deterministic: two calls
-    on the same inputs give the same bits."""
+    outside [0, B) (the -1 of padding) is ignored. Runs the kernel
+    :func:`moments_plan` picks. Deterministic: two calls on the same inputs
+    give the same bits. ``segment_moments.kernels`` counts the launches by
+    kernel."""
     if _on_cpu(features):
         return segment_moments_plain(features, idx, num_buckets)
     _check_moments_inputs(features, idx, _FEATURE_DTYPES)
-    # 32-column tiles; one block per SM (a block holds 8 warps' [B, 32]
-    # accumulators, ~190 kB of shared memory at B = 93)
-    out = _moments_launch("fds_segment_moments", features, idx, num_buckets,
-                          -(-features.shape[1] // 32), 1, int(features.dtype == torch.bfloat16))
+    n, d = features.shape
+    plan = moments_plan(n, d, _sm_count(features.get_device()))
+    out = _moments_launch("fds_segment_moments", features, idx, num_buckets, plan.chunks,
+                          (int(features.dtype == torch.bfloat16),), (_K3_KERNELS[plan.kernel],))
     segment_moments.launches += 1
+    segment_moments.kernels[plan.kernel] += 1
     return out
 
 
@@ -355,8 +413,9 @@ def segment_moments_v2(features, idx, num_buckets: int):
     if not 1 <= num_buckets <= V2_MAX_BUCKETS:
         raise ValueError(f"segment_moments_v2 takes 1 to {V2_MAX_BUCKETS} buckets, got {num_buckets}")
     # 16-column tiles; two blocks per SM (~37 kB of shared memory each)
-    out = _moments_launch("fds_segment_moments_v2", features, idx, num_buckets,
-                          -(-features.shape[1] // 16), 2)
+    chunks = row_chunks(features.shape[0], -(-features.shape[1] // 16),
+                        2 * _sm_count(features.get_device()))
+    out = _moments_launch("fds_segment_moments_v2", features, idx, num_buckets, chunks)
     segment_moments_v2.launches += 1
     return out
 
@@ -367,6 +426,7 @@ KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments, segme
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    segment_moments.kernels = collections.Counter()
 
 
 reset_launch_counts()

@@ -122,14 +122,26 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         ck.segment_moments(x, e.cpu(), B)
 
 
-def _moments_inputs(n, d, b, dev):
+def _moments_inputs(n, d, b, dev, pattern="random", dtype=torch.float32):
     """Features with a per-column scale (as ``test_pallas.py`` gives K4's
-    TPU version), every 7th row outside the buckets."""
+    TPU version) in ``dtype``, and bucket indices: uniform ("random"), all
+    in one bucket ("one"), or in runs along rows of 152 pixels ("runs": a
+    ramp of at most 0.2 buckets a pixel from a random bucket in each row, as
+    a depth map's rows in NHWC order give); every 7th row outside the
+    buckets."""
     rng = np.random.default_rng(4)
     feats = (rng.normal(size=(n, d)) * rng.uniform(0.1, 30.0, size=(1, d))).astype(np.float32)
-    idx = rng.integers(0, b, size=n).astype(np.int32)
+    if pattern == "random":
+        idx = rng.integers(0, b, size=n)
+    elif pattern == "one":
+        idx = np.full(n, b // 2)
+    else:
+        rows = -(-n // 152)
+        ramp = rng.uniform(0, b, size=(rows, 1)) + rng.uniform(-0.2, 0.2, size=(rows, 1)) * np.arange(152)
+        idx = np.clip(np.floor(ramp), 0, b - 1).reshape(-1)[:n]
+    idx = idx.astype(np.int32)
     idx[::7] = -1
-    return torch.as_tensor(feats).to(dev), torch.as_tensor(idx).to(dev)
+    return torch.as_tensor(feats).to(dev).to(dtype), torch.as_tensor(idx).to(dev)
 
 
 def _float64_moments(feats, idx, b):
@@ -143,20 +155,43 @@ def _float64_moments(feats, idx, b):
         zeros().index_add_(0, i, f.abs())
 
 
-# (N, D, B): one row chunk at the age shape; 3 chunks with ragged column
-# tiles; 33 chunks at D = 128 (the NYUD2 hook width) on a 132-SM card
-MOMENT_SHAPES = [(N, D, B), (3000, 100, 21), (50_000, 128, 93)]
+F32, BF16 = torch.float32, torch.bfloat16
+SHORT = ck.SHORT_BATCH_MAX_ROWS
+# (N, D, B, index pattern, feature dtype): the age shape (K3's short-batch
+# kernel, one row chunk), in float32 and bf16 (its 8-byte vector loads); the
+# short kernel's last N and the row split's first; the short kernel on a
+# ragged last column tile (D % 4 != 0), in float32 and bf16 (its scalar
+# loads); 3 chunks with ragged column tiles; 33 chunks at D = 128 (the NYUD2
+# hook width) on a 132-SM card; the row split in one chunk (so many column
+# tiles that they fill the card alone, no second pass); every row in one
+# bucket (the row split's merge takes whole groups; the short kernel's one
+# warp takes every row); runs of equal buckets as depth maps give; bf16 at
+# the NYUD2 stats-pass shape; 512 buckets on both K3 kernels (beyond K4's
+# 128, so K3 only)
+MOMENT_CASES = [
+    (N, D, B, "random", F32), (N, D, B, "random", BF16), (SHORT, D, B, "random", F32),
+    (SHORT + 1, D, B, "random", F32), (300, 130, 21, "random", F32),
+    (300, 130, 21, "random", BF16), (3000, 100, 21, "random", F32),
+    (50_000, 128, 93, "random", F32), (5000, 4352, 8, "random", F32),
+    (50_000, 128, 93, "one", F32), (64, D, B, "one", F32),
+    (50_000, 128, 93, "runs", F32), (554_496, 128, 93, "random", BF16),
+    (64, D, 512, "random", F32), (20_000, 64, 512, "random", F32),
+]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["segment_moments", "segment_moments_v2"])
-@pytest.mark.parametrize("n,d,b", MOMENT_SHAPES)
-def test_moments_kernels_match_float64(cuda_device, kernel, n, d, b):
-    feats, idx = _moments_inputs(n, d, b, cuda_device)
+@pytest.mark.parametrize("kernel,n,d,b,pattern,dtype", [
+    (kernel, *case) for kernel in ("segment_moments", "segment_moments_v2") for case in MOMENT_CASES
+    if kernel == "segment_moments" or (case[4] == F32 and case[2] <= ck.V2_MAX_BUCKETS)])
+def test_moments_kernels_match_float64(cuda_device, kernel, n, d, b, pattern, dtype):
+    feats, idx = _moments_inputs(n, d, b, cuda_device, pattern, dtype)
     fn, plain = getattr(ck, kernel), getattr(ck, f"{kernel}_plain")
     ck.reset_launch_counts()
     c, s, q = fn(feats, idx, b)
     assert fn.launches == 1
+    if kernel == "segment_moments":
+        sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        assert ck.segment_moments.kernels == {ck.moments_plan(n, d, sm).kernel: 1}
     count, total, total_sq, total_abs = _float64_moments(feats, idx, b)
     torch.testing.assert_close(c.double(), count, rtol=0, atol=0)  # counts are exact
     # float32 sums in row order, against exact ones: within 1e-5 of the

@@ -335,6 +335,20 @@ def test_row_chunks():
     assert ck.row_chunks(0, 4, 132) == 1
 
 
+@pytest.mark.parametrize("n,d,kernel,chunks", [
+    (64, 2048, "short", 1),  # the age stats pass
+    (554_496, 128, "split", 33),  # the NYUD2 stats pass: 4 column tiles x 33 chunks
+    (ck.SHORT_BATCH_MAX_ROWS, 2048, "short", 1),  # the last N of the short-batch kernel
+    (ck.SHORT_BATCH_MAX_ROWS + 1, 2048, "split", 3),  # the first of the row split
+    (0, 2048, "short", 1),  # an empty batch
+])
+def test_moments_plan(n, d, kernel, chunks):
+    """K3's plan is a function of the shapes and the SM count: the
+    short-batch kernel (one pass) up to SHORT_BATCH_MAX_ROWS rows, the row
+    split with its chunks beyond."""
+    assert ck.moments_plan(n, d, 132) == ck.MomentsPlan(kernel, chunks)
+
+
 # ---------------------------------------------------------- kernel wrappers (CPU)
 
 
@@ -356,6 +370,7 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     torch.testing.assert_close(c2, c, rtol=0, atol=0)
     assert len(ck.KERNEL_WRAPPERS) == 4
     assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
+    assert not ck.segment_moments.kernels
 
 
 def test_wrappers_reject_other_devices():
@@ -372,9 +387,12 @@ def test_kernel_sources_and_build_key():
     assert path.parent == ck.BUILD_DIR and path.name.startswith("libfds_kernels_")
     assert path == ck.library_path()
     src = (ck.SOURCE_DIR / "fds_kernels.cu").read_text()
-    for entry in ("fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments"):
+    for entry in ("fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
+                  "fds_moments_short_max_rows"):
         assert f"int {entry}(" in src
     assert "int fds_segment_moments_v2(" in (ck.SOURCE_DIR / "moments_v2.cu").read_text()
     assert set(ck._SIGNATURES) == {"fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
-                                   "fds_segment_moments_v2"}
+                                   "fds_segment_moments_v2", "fds_moments_short_max_rows"}
+    # the plan's threshold is the short-batch kernel's limit
+    assert f"kShortMaxRows = {ck.SHORT_BATCH_MAX_ROWS};" in src
     assert "--use_fast_math" not in " ".join(ck.NVCC_FLAGS)
