@@ -16,8 +16,9 @@ Phases:
    152 = 554,496 pixels, D = 128, B = 93): K1/K2 against their plain
    versions in "positive" guard mode; K3/K4 against a float64 reference
    (exact counts, sums within 1e-5 of the bucket's sum of |f| or of f*f) and
-   bit-identical across two runs; all four timed; K3 also on an index in
-   runs of equal buckets along rows of 152 pixels, as a depth map gives;
+   bit-identical across two runs; all four timed; K3 and K4 also on an
+   index in runs of equal buckets along rows of 152 pixels, as a depth map
+   gives;
 4. drive the port's age train path (``tasks/age.py``: ResNet-50 in bf16 +
    LDS + FDS, three epochs on synthetic 224x224 images), with the kernel
    launch counters set to 0 just before and read just after;
@@ -26,7 +27,10 @@ Phases:
    4 steps of batch 32 on synthetic 228x304 images);
 6. one stats-pass batch of the trained depth model, whose encodings go
    through ``fds_bucket_moments`` with K3 and with K4 (``use_kernel="v2"``),
-   held against a float64 reference and each other, and timed on them.
+   held against a float64 reference and each other, and timed on them
+   (with their bounds, plain versions and ``index_add_``);
+7. the depth decoder's bf16 resize against float64 (output and gradient),
+   and timed against ``F.interpolate``.
 
 Phases 4-6 also check that K3 ran the kernel its plan names for the shape:
 the short-batch kernel on the age path, the row split on the depth path.
@@ -67,6 +71,9 @@ DEPTH_BATCH = int(DEPTH_ARGV[DEPTH_ARGV.index("--batch_size") + 1])
 DEPTH_HW = (114, 152)  # the hook's resolution: half the 228x304 input
 N_DEPTH = DEPTH_BATCH * DEPTH_HW[0] * DEPTH_HW[1]  # rows per kernel call on the path
 DEPTH = (128, 93)  # (D, B): the hook width, buckets 7..99
+# the bf16 resize against float64, as a share of the largest magnitude: the
+# weights, the width pass and the output each rounded to bf16 (2**-9)
+RESIZE_TOL = 2.0**-6
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -269,18 +276,19 @@ def moments_bound(n_valid: int, n: int, d: int, b: int, v2: bool) -> tuple[float
     rows inside the buckets in once (a row outside them adds nothing and
     need not be read), the outputs out once; 3 float32 operations per valid
     element for K3; for K4 the split (f * f and four subtractions per
-    element) and the one-hot products of the valid rows with the six bf16
-    terms."""
+    element) and the one-hot products that the data needs: each valid row's
+    six bf16 terms times the one 1 of its one-hot row (a product with a 0
+    adds nothing)."""
     nbytes = n_valid * d * 4 + n * 4 + b * 4 + 2 * b * d * 4
     if v2:
-        return nbytes, 5 * n_valid * d, 2 * b * n_valid * 6 * d
+        return nbytes, 5 * n_valid * d, 2 * n_valid * 6 * d
     return nbytes, 3 * n_valid * d, 0.0
 
 
 def library_moments(f, idx, b: int):
     """The same sums by one PyTorch call (``index_add_``, atomics) on
     prepared rows [f, f*f, 1]."""
-    valid = idx >= 0
+    valid = (idx >= 0) & (idx < b)
     src = torch.cat([f[valid], f[valid] * f[valid], torch.ones_like(f[valid, :1])], 1)
     tgt = idx[valid].long()
     return lambda: torch.zeros(b, src.shape[1], device=f.device).index_add_(0, tgt, src)
@@ -326,13 +334,14 @@ def check_moments(ck, gen, dev, n: int, d: int, b: int, record: bool, iters: int
 
 def check_depth_moments(ck, gen, dev) -> dict:
     """K3 and K4 at the NYUD2 shape against a float64 reference, bit-identical
-    across two runs, and timed; K3 also on an index in runs."""
+    across two runs, and timed; on a random index and on one in runs."""
     n, (d, b) = N_DEPTH, DEPTH
     f, idx = moments_inputs(gen, dev, n, d, b)
     log_plan(ck, n, d)
     results = {}
+    runs = run_idx(gen, dev, n, b)
     for name, idx_ in (("segment_moments", idx), ("segment_moments_v2", idx),
-                       ("segment_moments runs", run_idx(gen, dev, n, b))):
+                       ("segment_moments runs", runs), ("segment_moments_v2 runs", runs)):
         kernel, plain = getattr(ck, name.split()[0]), getattr(ck, f"{name.split()[0]}_plain")
         ref = float64_moments(f, idx_, b)
         got, again = kernel(f, idx_, b), kernel(f, idx_, b)
@@ -343,8 +352,8 @@ def check_depth_moments(ck, gen, dev) -> dict:
             f"sumsq within {rel_q:.3e} of sum f^2 (float64 reference), bit-identical across two "
             f"runs: {identical}")
         assert identical, f"{name} differs between two runs"
-        n_valid = int((idx_ >= 0).sum())
-        nbytes, flops, bf16 = moments_bound(n_valid, n, d, b, name.endswith("v2"))
+        n_valid = int(((idx_ >= 0) & (idx_ < b)).sum())
+        nbytes, flops, bf16 = moments_bound(n_valid, n, d, b, name.split()[0].endswith("v2"))
         err = max(max_err(a, w) for a, w in zip(got, ref[:3]))
         tag = shape_tag(n, d, b) + (",idx=runs" if name.endswith("runs") else "")
         results[name] = timed(lambda k=kernel, i=idx_: k(f, i, b),
@@ -436,11 +445,12 @@ def depth_path_phase(ck) -> tuple[dict, dict]:
     return launches, result
 
 
-def depth_stats_phase(ck, result) -> dict:
+def depth_stats_phase(ck, result) -> tuple[dict, dict]:
     """One stats-pass batch of the trained depth model (train-mode backbone,
     no_grad, the photometric augment); its encodings through
     ``fds_bucket_moments`` with K3 and with K4, held against a float64
-    reference and each other. Returns the launches of this step."""
+    reference and each other, then timed on them. Returns the launches of
+    this step and the two kernels' records on these encodings."""
     from imbalanced_regression_tpu_torch.data.batching import batch_iterator
     from imbalanced_regression_tpu_torch.fds import fds_bucket_moments
     from imbalanced_regression_tpu_torch.ops.binning import bin_index_depth
@@ -477,11 +487,70 @@ def depth_stats_phase(ck, result) -> dict:
     assert torch.equal(m3.count, m4.count)
     assert bool(((m3.total - m4.total).abs().double() <= 2e-5 * ref[3]).all())
     assert bool(((m3.total_sq - m4.total_sq).abs().double() <= 2e-5 * ref[2]).all())
-    k3 = lambda: ck.segment_moments(rows, idx, cfg.num_buckets)  # noqa: E731
-    k4 = lambda: ck.segment_moments_v2(rows, idx, cfg.num_buckets)  # noqa: E731
-    log(f"on these encodings: K3 {time_ms(k3, iters=10):.4f} ms, K4 {time_ms(k4, iters=10):.4f} ms "
-        f"per call (wrapper); device K3 {graph_ms(k3):.4f} ms, K4 {graph_ms(k4):.4f} ms")
-    return launches
+    n, (d, b) = rows.shape[0], DEPTH
+    assert (rows.shape[1], cfg.num_buckets) == DEPTH, (rows.shape, cfg.num_buckets)
+    n_valid = int(((idx >= 0) & (idx < b)).sum())
+    records = {}
+    for name, m in (("segment_moments", m3), ("segment_moments_v2", m4)):
+        kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
+        nbytes, flops, bf16 = moments_bound(n_valid, n, d, b, name.endswith("v2"))
+        err = max(max_err(a, w) for a, w in zip((m.count, m.total, m.total_sq), ref[:3]))
+        records[f"{name} encodings"] = timed(
+            lambda k=kernel: k(rows, idx, b), lambda p=plain: p(rows, idx, b),
+            library_moments(rows, idx, b), nbytes, flops, err,
+            shape_tag(n, d, b) + ",idx=stats-pass encodings", 10, bf16)
+    log_records(records)
+    return launches, records
+
+
+def resize_run(resize, x, g):
+    """(output, gradient in x) of ``resize`` on ``x`` with cotangent ``g``."""
+    xg = x.detach().requires_grad_(True)
+    y = resize(xg)
+    (gx,) = torch.autograd.grad(y, xg, g)
+    return y.detach(), gx
+
+
+def resize_phase(dev) -> None:
+    """The depth decoder's bf16 resize (``_resize_bilinear``): output and
+    gradient against float64 at 8x10 -> 114x152 (the largest factor of the
+    decoder), within ``RESIZE_TOL`` of the largest magnitude, with
+    ``F.interpolate``'s bf16 errors logged beside; then forward + backward
+    timed at ``mff_up[3]``'s shape (batch 32, 2048 channels) against
+    ``F.interpolate`` in bf16 and under bf16 autocast (which runs it in
+    float32)."""
+    import torch.nn.functional as F
+
+    from imbalanced_regression_tpu_torch.models.depth_encdec import _resize_bilinear
+
+    size = DEPTH_HW
+    ours = lambda a: _resize_bilinear(a, size)  # noqa: E731
+    interp = lambda a: F.interpolate(a, size=size, mode="bilinear", align_corners=False)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = lambda *s: torch.randn(*s, generator=gen, device=dev).to(  # noqa: E731
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x, g = bf16(4, 256, 8, 10), bf16(4, 256, *size)
+    want = resize_run(interp, x.double(), g.double())
+    errs = {}
+    for name, fn in (("bilinear matmuls", ours), ("F.interpolate", interp)):
+        got = resize_run(fn, x, g)
+        assert all(t.dtype == torch.bfloat16 for t in got), [t.dtype for t in got]
+        errs[name] = [max_err(a, w) / float(w.abs().max()) for a, w in zip(got, want)]
+        log(f"bf16 resize 8x10->{size[0]}x{size[1]} by {name}: output within {errs[name][0]:.3e}, "
+            f"gradient within {errs[name][1]:.3e} of the largest float64 magnitude")
+    assert max(errs["bilinear matmuls"]) <= RESIZE_TOL, errs
+
+    x, g = bf16(DEPTH_BATCH, 2048, 8, 10), bf16(DEPTH_BATCH, 2048, *size)
+
+    def autocast_interp(a):
+        with torch.autocast(device_type="cuda", dtype=torch.bfloat16):
+            return interp(a)
+
+    times = {name: time_ms(lambda fn=fn: resize_run(fn, x, g), iters=5)
+             for name, fn in (("bilinear matmuls (bf16)", ours), ("F.interpolate bf16", interp),
+                              ("F.interpolate under autocast (float32)", autocast_interp))}
+    log(f"resize + gradient {tuple(x.shape)} -> {size}, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
 
 
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int) -> None:
@@ -519,6 +588,9 @@ def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps:
         log(f"  {sum(times) / steps:8.3f} ms/step  x{len(times) // steps:<4d} {kernel[:100]}")
     fds_ms = sum(sum(v) for k, v in by_name.items() if "calibrate_kernel" in k or "moments_kernel" in k)
     log(f"  FDS kernels: {fds_ms / steps:.4f} ms/step")
+    upsample = {k: v for k, v in by_name.items() if "upsample" in k}
+    log(f"  upsample kernels: {sum(sum(v) for v in upsample.values()) / steps:.4f} ms/step "
+        f"({sorted(k[:60] for k in upsample)})")
     os.makedirs("runs/chip_smoke", exist_ok=True)
     prof.export_chrome_trace(f"runs/chip_smoke/trace_{name}.json")
 
@@ -582,7 +654,10 @@ def main(argv=None) -> int:
     age_records, depth_records = kernel_phase(ck, cal, dev)
     age_launches = main_path_phase(ck)
     depth_launches, depth_result = depth_path_phase(ck)
-    depth_launches["segment_moments_v2"] = depth_stats_phase(ck, depth_result)["segment_moments_v2"]
+    stats_launches, stats_records = depth_stats_phase(ck, depth_result)
+    depth_launches["segment_moments_v2"] = stats_launches["segment_moments_v2"]
+    depth_records.update(stats_records)
+    resize_phase(dev)
     if args.profile:
         profile_phase()
 

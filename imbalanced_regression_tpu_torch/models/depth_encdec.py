@@ -19,14 +19,20 @@ Numerics and layout, as in :mod:`models.resnet`:
 - the hook is returned as a logical NHWC float32 tensor: a permuted view of
   the channels_last map, so its per-pixel rows are contiguous and line up
   with the ``[N, H, W, 1]`` targets in the JAX package's order with no copy;
-- ``F.interpolate(mode="bilinear", align_corners=False)`` stands for
-  ``jax.image.resize(method="bilinear")``: both use half-pixel centres, and
-  every resize here upsamples, where the two agree.
+- the bilinear resize is ``jax.image.resize(method="bilinear")``'s: two
+  products with weight matrices (half-pixel centres, triangle kernel) cast
+  to the map's dtype, so a bf16 map is resized in bf16 with float32
+  accumulation, as in the JAX model, and its gradient is the transposed
+  products, rounded once per product. (``F.interpolate`` would run in
+  float32 under CUDA autocast, and its bf16 backward adds into the input
+  gradient with bf16 atomics, ~870 adds per input pixel at 8x10 →
+  114x152.)
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Sequence
 
 import torch
@@ -42,8 +48,34 @@ from imbalanced_regression_tpu_torch.models.resnet import (
 )
 
 
+@functools.cache
+def _resize_weights(n_in: int, n_out: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[n_out, n_in] bilinear weights of ``jax.image.resize`` along one axis
+    (``jax._src.image.scale.compute_weight_mat`` with its default
+    antialiasing, in float32), cast to ``dtype``: half-pixel centres, the
+    triangle kernel widened by the downscale factor, each output's weights
+    normalized to sum to 1. (Every sample lies inside [-0.5, n_in - 0.5],
+    so JAX's masks for samples outside the input never apply.)"""
+    inv_scale = torch.tensor(n_in / n_out, dtype=torch.float32)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[:, None] - torch.arange(n_in, dtype=torch.float32)[None, :]).abs()
+    w = (1.0 - x / torch.clamp(inv_scale, min=1.0)).clamp(min=0.0)
+    return (w / w.sum(1, keepdim=True)).to(device=device, dtype=dtype)
+
+
 def _resize_bilinear(x: torch.Tensor, size_hw) -> torch.Tensor:
-    return F.interpolate(x, size=tuple(size_hw), mode="bilinear", align_corners=False)
+    """``jax.image.resize(bilinear)`` of ``x`` [N, C, h, w] to ``size_hw``, in
+    ``x``'s own dtype with autocast off: along the width, then the height,
+    each a product with float32 accumulation rounded to the dtype. Returns
+    [N, C, H, W] in the channels_last layout."""
+    n, c, h, w = x.shape
+    out_h, out_w = size_hw
+    with torch.autocast(device_type=x.device.type, enabled=False):
+        cols = _resize_weights(w, out_w, x.dtype, x.device)  # [W, w]
+        rows = _resize_weights(h, out_h, x.dtype, x.device)  # [H, h]
+        t = torch.matmul(cols, x.permute(0, 2, 3, 1))  # [N, h, W, C]
+        y = torch.matmul(rows, t.reshape(n, h, out_w * c))  # [N, H, W * C]
+    return y.view(n, out_h, out_w, c).permute(0, 3, 1, 2)
 
 
 class UpProjection(nn.Module):

@@ -16,8 +16,9 @@ Four kernels in ``csrc/`` replace the Pallas TPU kernels of the JAX package
 
 K3 runs one of two kernels, chosen by :func:`moments_plan` from the shapes:
 a short-batch kernel for a few thousand rows or fewer, and a row split for
-more. The row split, and K4, cut the rows into chunks (:func:`row_chunks`)
-and add the chunks' partials in a fixed order, so both are deterministic.
+more. The row split, and K4, cut the rows into chunks (:func:`row_chunks`,
+:func:`v2_chunks`) and add the chunks' partials in a fixed order, so both
+are deterministic.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` (all at once, one
 process per file) and linked into a shared library with a plain C
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "fds_moments_short_max_rows": (),
     # f, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
     "fds_segment_moments_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "fds_moments_v2_blocks_per_sm": (),
 }
 
 
@@ -121,7 +123,8 @@ def build_library() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument types declared. Raises if K3's short-batch kernel
-    takes another row count than :func:`moments_plan` sends it."""
+    takes another row count than :func:`moments_plan` sends it, or K4 is
+    compiled for another occupancy than :func:`v2_chunks` assumes."""
     lib = ctypes.CDLL(str(build_library()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -130,6 +133,9 @@ def load_library() -> ctypes.CDLL:
     if lib.fds_moments_short_max_rows() != SHORT_BATCH_MAX_ROWS:
         raise RuntimeError(f"the short-batch kernel takes {lib.fds_moments_short_max_rows()} rows, "
                            f"SHORT_BATCH_MAX_ROWS is {SHORT_BATCH_MAX_ROWS}")
+    if lib.fds_moments_v2_blocks_per_sm() != V2_BLOCKS_PER_SM:
+        raise RuntimeError(f"K4 is compiled for {lib.fds_moments_v2_blocks_per_sm()} blocks a SM, "
+                           f"V2_BLOCKS_PER_SM is {V2_BLOCKS_PER_SM}")
     return lib
 
 
@@ -399,7 +405,19 @@ def segment_moments(features, idx, num_buckets: int):
     return out
 
 
-V2_MAX_BUCKETS = 128  # K4 keeps the padded bucket axis in at most 8 tiles of 16
+V2_MAX_BUCKETS = 128  # K4 keeps the padded bucket axis in at most 16 tiles of 8
+# K4's blocks a SM, the register cap it is compiled for (kMinBlocksPerSM in
+# csrc/moments_v2.cu)
+V2_BLOCKS_PER_SM = 3
+
+
+def v2_chunks(n: int, d: int, sm_count: int) -> int:
+    """K4's row chunks for ``n`` rows of ``d`` features: as many as one wave
+    of ``V2_BLOCKS_PER_SM`` blocks a SM holds over the 16-column tiles
+    (rounded down: a block left to a second wave would double the time),
+    none shorter than ``MIN_CHUNK_ROWS`` rows, at least one. A function of
+    the shapes and the card only, so the bits never change."""
+    return max(1, min(-(-n // MIN_CHUNK_ROWS), V2_BLOCKS_PER_SM * sm_count // -(-d // 16)))
 
 
 def segment_moments_v2(features, idx, num_buckets: int):
@@ -412,9 +430,7 @@ def segment_moments_v2(features, idx, num_buckets: int):
     _check_moments_inputs(features, idx, _F32)
     if not 1 <= num_buckets <= V2_MAX_BUCKETS:
         raise ValueError(f"segment_moments_v2 takes 1 to {V2_MAX_BUCKETS} buckets, got {num_buckets}")
-    # 16-column tiles; two blocks per SM (~37 kB of shared memory each)
-    chunks = row_chunks(features.shape[0], -(-features.shape[1] // 16),
-                        2 * _sm_count(features.get_device()))
+    chunks = v2_chunks(*features.shape, _sm_count(features.get_device()))
     out = _moments_launch("fds_segment_moments_v2", features, idx, num_buckets, chunks)
     segment_moments_v2.launches += 1
     return out

@@ -2,7 +2,9 @@
 age slice's shapes (N = 128 rows, D = 2048, B = 100 buckets) with the corner
 cases of the JAX tests, and the segment-moments kernels (K3, K4) also
 against a float64 reference at shapes that take one and several row
-chunks. Marked ``cuda``: they skip where there is no GPU.
+chunks; and the depth decoder's bf16 resize under CUDA autocast (bf16 maps
+into every UpProjection's convolutions, its gradient against float64).
+Marked ``cuda``: they skip where there is no GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch; there, skip the repository's conftest (which
@@ -14,7 +16,9 @@ imports jax):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+from imbalanced_regression_tpu_torch.models.depth_encdec import DepthEncoderDecoder, _resize_bilinear
 from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.ops.calibrate import calibrate_indexed, calibrate_indexed_grad
 N, D, B = 128, 2048, 100
@@ -125,16 +129,18 @@ def test_wrappers_reject_bad_inputs(cuda_device):
 def _moments_inputs(n, d, b, dev, pattern="random", dtype=torch.float32):
     """Features with a per-column scale (as ``test_pallas.py`` gives K4's
     TPU version) in ``dtype``, and bucket indices: uniform ("random"), all
-    in one bucket ("one"), or in runs along rows of 152 pixels ("runs": a
-    ramp of at most 0.2 buckets a pixel from a random bucket in each row, as
-    a depth map's rows in NHWC order give); every 7th row outside the
-    buckets."""
+    in one bucket ("one"), in runs along rows of 152 pixels ("runs": a ramp
+    of at most 0.2 buckets a pixel from a random bucket in each row, as a
+    depth map's rows in NHWC order give), or none ("none": every row -1);
+    every 7th row outside the buckets."""
     rng = np.random.default_rng(4)
     feats = (rng.normal(size=(n, d)) * rng.uniform(0.1, 30.0, size=(1, d))).astype(np.float32)
     if pattern == "random":
         idx = rng.integers(0, b, size=n)
     elif pattern == "one":
         idx = np.full(n, b // 2)
+    elif pattern == "none":
+        idx = np.full(n, -1)
     else:
         rows = -(-n // 152)
         ramp = rng.uniform(0, b, size=(rows, 1)) + rng.uniform(-0.2, 0.2, size=(rows, 1)) * np.arange(152)
@@ -167,7 +173,10 @@ SHORT = ck.SHORT_BATCH_MAX_ROWS
 # bucket (the row split's merge takes whole groups; the short kernel's one
 # warp takes every row); runs of equal buckets as depth maps give; bf16 at
 # the NYUD2 stats-pass shape; 512 buckets on both K3 kernels (beyond K4's
-# 128, so K3 only)
+# 128, so K3 only); for K4's register design: all 16 of its eight-bucket
+# tiles (B = 128) and one (B = 1), a ragged last column tile (D = 24) and a
+# half one (D = 8), odd D (its scalar loads), one full 16-row step and one
+# row (N = 17), and no row in any bucket
 MOMENT_CASES = [
     (N, D, B, "random", F32), (N, D, B, "random", BF16), (SHORT, D, B, "random", F32),
     (SHORT + 1, D, B, "random", F32), (300, 130, 21, "random", F32),
@@ -176,6 +185,9 @@ MOMENT_CASES = [
     (50_000, 128, 93, "one", F32), (64, D, B, "one", F32),
     (50_000, 128, 93, "runs", F32), (554_496, 128, 93, "random", BF16),
     (64, D, 512, "random", F32), (20_000, 64, 512, "random", F32),
+    (50_000, 128, 128, "random", F32), (3000, 128, 1, "random", F32),
+    (3000, 24, 21, "random", F32), (3000, 8, 21, "random", F32), (300, 7, 21, "random", F32),
+    (17, 128, 93, "random", F32), (3000, 128, 93, "none", F32),
 ]
 
 
@@ -205,6 +217,49 @@ def test_moments_kernels_match_float64(cuda_device, kernel, n, d, b, pattern, dt
     torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5 * float(total_sq.max()))
     c2, s2, q2 = fn(feats, idx, b)
     assert torch.equal(c, c2) and torch.equal(s, s2) and torch.equal(q, q2)  # deterministic
+
+
+@pytest.mark.cuda
+def test_upprojections_convolve_bf16_maps(cuda_device):
+    """Under CUDA autocast every UpProjection resizes its bf16 map in bf16, so
+    each of its convolutions gets a bf16 input (``F.interpolate`` would hand
+    them float32 maps)."""
+    model = DepthEncoderDecoder(stage_sizes=(1, 1, 1, 1), width=8).to(
+        cuda_device, memory_format=torch.channels_last)
+    seen = []
+    ups = [*model.d_up, *model.mff_up]
+    for up in ups:
+        for conv in (up.conv1, up.conv1_2, up.conv2):
+            conv.register_forward_pre_hook(lambda mod, args: seen.append(args[0].dtype))
+    x = torch.randn(2, 64, 96, 3, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    hook = model(x)
+    hook.sum().backward()
+    assert seen == [torch.bfloat16] * (3 * len(ups))
+
+
+# the gradient of the bf16 resize against float64: the weights, the width
+# pass and the output are each rounded to bf16 (2**-9 of a value), about
+# 2**-7.5 of the largest magnitude in all; bf16 atomic adds (~870 into each
+# input pixel at 8x10 -> 114x152) lose about 2**-4.5
+RESIZE_TOL = 2.0**-6
+
+
+@pytest.mark.cuda
+def test_bf16_resize_gradient_matches_float64(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 64, 8, 10, generator=gen).to(torch.bfloat16)
+    g = torch.randn(4, 64, 114, 152, generator=gen).to(torch.bfloat16)
+    xt = x.to(cuda_device, memory_format=torch.channels_last).requires_grad_(True)
+    y = _resize_bilinear(xt, (114, 152))
+    y.backward(g.to(cuda_device, memory_format=torch.channels_last))
+    x64 = x.to(cuda_device, torch.float64).requires_grad_(True)
+    y64 = F.interpolate(x64, size=(114, 152), mode="bilinear", align_corners=False)
+    y64.backward(g.to(cuda_device, torch.float64))
+    assert y.dtype == xt.grad.dtype == torch.bfloat16
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    for got, want in ((y.detach(), y64.detach()), (xt.grad, x64.grad)):
+        err = float((got.double() - want).abs().max())
+        assert err <= RESIZE_TOL * float(want.abs().max()), (err, float(want.abs().max()))
 
 
 @pytest.mark.cuda

@@ -130,14 +130,75 @@ def test_channel_knobs_match_jax(mff, dmin):
 
 @pytest.mark.parametrize("src,dst", [((8, 10), (15, 19)), ((8, 10), (16, 20)), ((57, 76), (114, 152))])
 def test_bilinear_upsample_matches_jax_resize(rng, src, dst):
-    """``F.interpolate(bilinear, align_corners=False)`` against
-    ``jax.image.resize(bilinear)`` when upsampling, at non-integer ratios too
+    """The port's float32 resize against ``jax.image.resize(bilinear)``
+    (the same as ``F.interpolate(bilinear, align_corners=False)`` when
+    upsampling), at non-integer ratios too
     (the encoder's odd stage sizes at 228x304: 57x76 → 29x38 → 15x19 → 8x10)."""
     x = rng.normal(size=(2, *src, 5)).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, *dst, 5), method="bilinear"))
     got = _resize_bilinear(T(x).permute(0, 3, 1, 2), dst).permute(0, 2, 3, 1).numpy()
     # the same two-tap weights, computed in another order: float32 rounding
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+RESIZES = [((8, 10), (15, 19)), ((8, 10), (16, 20)), ((57, 76), (114, 152))]
+
+
+def _bf16(rng, shape):
+    """Normal values rounded to bf16, as float32 numpy (exact in both)."""
+    return np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16).astype(jnp.float32))
+
+
+def _bf16_close(got, want):
+    """Within 2**-7 of the largest magnitude: both sides resize in bf16 with
+    float32 accumulation, but round the weights, the intermediate map and
+    the output at other places (a bf16 rounding is 2**-9 of the value)."""
+    _scaled_close(got, want, 2.0**-7)
+
+
+@pytest.mark.parametrize("src,dst", RESIZES)
+def test_bf16_resize_matches_jax_resize(rng, src, dst):
+    """A bf16 map is resized in bf16, against ``jax.image.resize`` on the
+    same bf16 map (the JAX model's ``_resize_bilinear``)."""
+    x = _bf16(rng, (2, *src, 5))
+    want = jdepth._resize_bilinear(jnp.asarray(x, jnp.bfloat16), *dst)
+    got = _resize_bilinear(T(x).to(torch.bfloat16).permute(0, 3, 1, 2), dst)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _bf16_close(got.permute(0, 2, 3, 1).float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("src,dst", RESIZES)
+def test_bf16_resize_gradient_matches_jax_vjp(rng, src, dst):
+    """The gradient of the bf16 resize in the map, against ``jax.vjp`` of the
+    JAX resize, for the same bf16 map and cotangent."""
+    x, g = _bf16(rng, (2, *src, 5)), _bf16(rng, (2, *dst, 5))
+    _, vjp = jax.vjp(lambda a: jdepth._resize_bilinear(a, *dst), jnp.asarray(x, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(g, jnp.bfloat16))
+    xt = T(x).to(torch.bfloat16).permute(0, 3, 1, 2).requires_grad_(True)
+    _resize_bilinear(xt, dst).backward(T(g).to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert xt.grad.dtype == torch.bfloat16
+    _bf16_close(xt.grad.permute(0, 2, 3, 1).float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_keeps_dtype_with_autocast_off(rng, monkeypatch, dtype):
+    """Under bf16 autocast the resize returns its input's dtype, and every
+    product inside it runs with autocast off (a spy on ``torch.matmul``)."""
+    seen = []
+    matmul = torch.matmul
+
+    def spy(a, b):
+        seen.append((torch.is_autocast_enabled("cpu"), a.dtype, b.dtype))
+        return matmul(a, b)
+
+    monkeypatch.setattr(torch, "matmul", spy)
+    x = T(rng.normal(size=(2, 3, 8, 10)).astype(np.float32)).to(dtype)
+    with torch.autocast(device_type="cpu", dtype=torch.bfloat16):
+        y = _resize_bilinear(x, (15, 19))
+        assert torch.is_autocast_enabled("cpu")
+    assert y.dtype == dtype and y.shape == (2, 3, 15, 19)
+    assert seen == [(False, dtype, dtype)] * 2
 
 
 def test_encoder_stage_sizes_at_reference_crop():

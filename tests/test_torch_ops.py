@@ -329,7 +329,7 @@ def test_row_chunks():
     132-SM card at NYUD2's pixel batch, never under MIN_CHUNK_ROWS rows."""
     assert ck.row_chunks(64, 2048 // 32, 132) == 1
     assert ck.row_chunks(554_496, 128 // 32, 132) == 33  # K3: 4 x 33 = 132 blocks
-    assert ck.row_chunks(554_496, 128 // 16, 2 * 132) == 33  # K4: 8 x 33 = 264 blocks
+    assert ck.row_chunks(554_496, 128 // 16, 2 * 132) == 33  # 8 column tiles x 33 = 264 blocks
     assert ck.row_chunks(8192, 64, 132) == 3
     assert ck.row_chunks(3 * ck.MIN_CHUNK_ROWS, 1, 1000) == 3
     assert ck.row_chunks(0, 4, 132) == 1
@@ -347,6 +347,22 @@ def test_moments_plan(n, d, kernel, chunks):
     short-batch kernel (one pass) up to SHORT_BATCH_MAX_ROWS rows, the row
     split with its chunks beyond."""
     assert ck.moments_plan(n, d, 132) == ck.MomentsPlan(kernel, chunks)
+
+
+@pytest.mark.parametrize("n,d,chunks", [
+    (554_496, 128, 49),  # the NYUD2 stats pass: 8 column tiles x 49 = 392 of 396 slots
+    (64, 2048, 1),  # the age batch: 128 column tiles, one chunk
+    (8192, 2048, 3),  # 3 x 128 = 384 blocks
+    (5000, 4352, 1),  # 272 column tiles: one chunk, the wave left to the card
+    (17, 24, 1),
+    (0, 128, 1),  # an empty batch
+    (3 * ck.MIN_CHUNK_ROWS, 8, 3),  # no chunk under MIN_CHUNK_ROWS rows
+])
+def test_v2_chunks(n, d, chunks):
+    """K4's row chunks fill one wave of V2_BLOCKS_PER_SM blocks on a 132-SM
+    card and never more: a function of the shapes and the SM count."""
+    assert ck.v2_chunks(n, d, 132) == chunks
+    assert chunks == 1 or chunks * -(-d // 16) <= ck.V2_BLOCKS_PER_SM * 132
 
 
 # ---------------------------------------------------------- kernel wrappers (CPU)
@@ -390,9 +406,14 @@ def test_kernel_sources_and_build_key():
     for entry in ("fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
                   "fds_moments_short_max_rows"):
         assert f"int {entry}(" in src
-    assert "int fds_segment_moments_v2(" in (ck.SOURCE_DIR / "moments_v2.cu").read_text()
+    v2 = (ck.SOURCE_DIR / "moments_v2.cu").read_text()
+    for entry in ("fds_segment_moments_v2", "fds_moments_v2_blocks_per_sm"):
+        assert f"int {entry}(" in v2
     assert set(ck._SIGNATURES) == {"fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
-                                   "fds_segment_moments_v2", "fds_moments_short_max_rows"}
-    # the plan's threshold is the short-batch kernel's limit
+                                   "fds_segment_moments_v2", "fds_moments_short_max_rows",
+                                   "fds_moments_v2_blocks_per_sm"}
+    # the plan's threshold is the short-batch kernel's limit; K4's chunks
+    # assume the occupancy its register cap gives
     assert f"kShortMaxRows = {ck.SHORT_BATCH_MAX_ROWS};" in src
+    assert f"kMinBlocksPerSM = {ck.V2_BLOCKS_PER_SM};" in v2
     assert "--use_fast_math" not in " ".join(ck.NVCC_FLAGS)
