@@ -30,10 +30,27 @@ Phases:
    held against a float64 reference and each other, and timed on them
    (with their bounds, plain versions and ``index_add_``);
 7. the depth decoder's bf16 resize against float64 (output and gradient),
-   and timed against ``F.interpolate``.
+   and timed against ``F.interpolate``;
+8. age resume: the age path with ``--save_ckpt 1 --ckpt_every_steps 3
+   --epoch 2`` run once uninterrupted, once killed right after its second
+   mid-epoch save and resumed with ``--resume``; test metrics, best loss and
+   both checkpoints (backbone, head, optimizer, FDS state, step, generator)
+   bit-equal, under ``cudnn.deterministic`` (the pair is run again without
+   it and whether it was bit-equal is logged); the checkpoint's bytes and
+   save and restore seconds are logged;
+9. RRT stage 2 on phase 8's store (``--retrain_fc --pretrained``): backbone
+   weights bit-equal to stage 1's best, the head moved, epoch 1 calibrated
+   with the restored FDS snapshot, K1 and K3 launched and K2 not; then
+   ``--evaluate --resume`` on stage 2's store reproduces its final test;
+10. depth resume: the NYUD2 path with ``--save_ckpt 1 --ckpt_every_steps 2
+   --epoch 2``, killed and resumed as in phase 8; equal test metrics, best
+   epoch and checkpoints.
 
-Phases 4-6 also check that K3 ran the kernel its plan names for the shape:
-the short-batch kernel on the age path, the row split on the depth path.
+Phase 2 also times the per-node floor of a replayed CUDA graph (a
+one-element ``add_``), which bounds the device time of a kernel at the age
+path's tiny shapes from below. Phases 4-6 also check that K3 ran the
+kernel its plan names for the shape: the short-batch kernel on the age
+path, the row split on the depth path.
 ``k3_probe.py`` holds the measurements behind K3's design choices.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
@@ -45,9 +62,11 @@ or any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -74,6 +93,13 @@ DEPTH = (128, 93)  # (D, B): the hook width, buckets 7..99
 # the bf16 resize against float64, as a share of the largest magnitude: the
 # weights, the width pass and the output each rounded to bf16 (2**-9)
 RESIZE_TOL = 2.0**-6
+# phases 8-10: the paths with checkpoints, two epochs each, in their own
+# store roots (argparse keeps the last of a repeated flag)
+RESUME_ROOT = "runs/chip_smoke/resume"
+AGE_RESUME_ARGV = MAIN_ARGV + ["--save_ckpt", "1", "--ckpt_every_steps", "3", "--epoch", "2"]
+RRT_ARGV = MAIN_ARGV + ["--save_ckpt", "1", "--epoch", "2", "--retrain_fc", "--reweight",
+                        "sqrt_inv", "--fds"]
+DEPTH_RESUME_ARGV = DEPTH_ARGV + ["--save_ckpt", "1", "--ckpt_every_steps", "2", "--epoch", "2"]
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -369,6 +395,16 @@ def log_records(results: dict) -> None:
             f"({r['bound'][1]}, {r['bytes']} bytes)")
 
 
+def graph_floor_ms(dev) -> float:
+    """Device time per node of a replayed CUDA graph whose nodes do almost
+    nothing (a one-element ``add_``): no kernel timed by ``graph_ms`` can
+    show less."""
+    x = torch.zeros(1, device=dev)
+    floor = graph_ms(lambda: x.add_(1.0))
+    log(f"graph-node floor (one-element add_, replayed CUDA graph): {floor:.5f} ms per node")
+    return floor
+
+
 def kernel_phase(ck, cal, dev) -> tuple[dict, dict]:
     """Every kernel against its plain version at the age path's batch
     (N_MAIN rows, where the age records are taken), at N = 128, K3/K4 at
@@ -553,6 +589,252 @@ def resize_phase(dev) -> None:
         + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
 
 
+class Killed(Exception):
+    """Stands for the process dying right after a checkpoint was written."""
+
+
+def launch_counts(ck) -> dict:
+    return {fn.__name__: fn.launches for fn in ck.KERNEL_WRAPPERS}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+@contextlib.contextmanager
+def cudnn_determinism(on: bool):
+    """``cudnn.deterministic = on`` with ``benchmark`` off, restored after;
+    ``tasks/age.py`` and ``tasks/nyud2.py`` set neither."""
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = on, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
+def store_of(config) -> str:
+    return os.path.join(config.store_root, config.derived_store_name())
+
+
+def with_root(argv: list, root: str) -> list:
+    shutil.rmtree(root, ignore_errors=True)
+    return argv + ["--store_root", root]
+
+
+def payload_diffs(a, b, path: str = "") -> list:
+    """The paths at which two checkpoint payloads differ (tensors bit for
+    bit, everything else by ==)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path} keys"]
+        return [d for k in a for d in payload_diffs(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in payload_diffs(x, y, f"{path}[{i}]")]
+    if torch.is_tensor(a):
+        return [] if a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b) else [path]
+    return [] if a == b or (a != a and b != b) else [path]  # a != a: NaN
+
+
+def killed_and_resumed(ck, module, argv: list, store: str, kill_at: int = 2):
+    """Run ``module.main(argv)`` until its ``kill_at``-th checkpoint save has
+    been written and die there, then resume with ``--resume``. Returns the
+    resumed run's result and the launches of the two runs, each counted
+    from 0."""
+    real_save = module.save_checkpoint
+    calls = 0
+
+    def dying_save(*args, **kwargs):
+        nonlocal calls
+        real_save(*args, **kwargs)
+        calls += 1
+        if calls == kill_at:
+            raise Killed
+
+    module.save_checkpoint = dying_save
+    ck.reset_launch_counts()
+    try:
+        module.main(argv)
+        raise AssertionError("the run was not killed")
+    except Killed:
+        pass
+    finally:
+        module.save_checkpoint = real_save
+    killed = launch_counts(ck)
+    ck.reset_launch_counts()
+    result = module.main(argv + ["--resume", store])
+    torch.cuda.synchronize()
+    return result, killed, launch_counts(ck)
+
+
+def resumed_equal(full: dict, resumed: dict, keys, full_store: str, resumed_store: str) -> list:
+    """What differs between an uninterrupted and a resumed run: result
+    entries ``keys`` and the two checkpoints."""
+    from imbalanced_regression_tpu_torch.utils.checkpoint import read_checkpoint
+
+    diffs = [k for k in keys if payload_diffs(full[k], resumed[k])]
+    for which in ("latest", "best"):
+        diffs += payload_diffs(read_checkpoint(full_store, which),
+                               read_checkpoint(resumed_store, which), which)
+    return diffs
+
+
+def age_resume_phase(ck) -> tuple[dict, str]:
+    """Phase 8. Returns the launches of the asserted runs (uninterrupted,
+    killed and resumed, all under ``cudnn.deterministic``) and the store of
+    the uninterrupted one (RRT's stage 1)."""
+    from imbalanced_regression_tpu_torch.tasks import age
+    from imbalanced_regression_tpu_torch.utils.checkpoint import (
+        checkpoint_path, restore_checkpoint, save_checkpoint, state_byte_size)
+    from imbalanced_regression_tpu_torch.utils.config import parse_config
+
+    launches, stage1 = {}, None
+    for deterministic in (True, False):
+        tag = "deterministic" if deterministic else "default"
+        full_argv = with_root(AGE_RESUME_ARGV, f"{RESUME_ROOT}/age_{tag}_full")
+        resumed_argv = with_root(AGE_RESUME_ARGV, f"{RESUME_ROOT}/age_{tag}_resumed")
+        full_store = store_of(parse_config(full_argv))
+        resumed_store = store_of(parse_config(resumed_argv))
+        with cudnn_determinism(deterministic):
+            t0 = time.time()
+            ck.reset_launch_counts()
+            full = age.main(full_argv)
+            torch.cuda.synchronize()
+            full_launches = launch_counts(ck)
+            resumed, killed, resumed_launches = killed_and_resumed(ck, age, resumed_argv,
+                                                                   resumed_store)
+        diffs = resumed_equal(full, resumed, ("test", "shots", "best_loss"), full_store,
+                              resumed_store)
+        log(f"age resume, cudnn.deterministic={deterministic}: {time.time() - t0:.1f}s for the "
+            f"three runs; uninterrupted test {full['test']}, resumed test {resumed['test']}; "
+            f"bit-equal: {not diffs}" + (f" (differs: {diffs[:8]})" if diffs else ""))
+        log(f"  launches: uninterrupted {full_launches}, killed {killed}, resumed "
+            f"{resumed_launches}")
+        if not deterministic:
+            break
+        assert not diffs, f"the resumed age run differs from the uninterrupted one: {diffs[:8]}"
+        for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+            assert resumed_launches[name] > 0, f"{name} was not launched on the resumed age run"
+        for counts in (full_launches, killed, resumed_launches):
+            launches = add_counts(launches, counts)
+        stage1 = full_store
+        # the checkpoint of the trained ResNet-50 + Adam + FDS state
+        state, tmp = full["state"], f"{RESUME_ROOT}/timing"
+        saves, restores = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(tmp, state, 2, full["best_loss"], is_best=False)
+            saves.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            restore_checkpoint(tmp, state, "latest")
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+        log(f"age checkpoint: {os.path.getsize(checkpoint_path(tmp, 'latest'))} bytes on disk "
+            f"({state_byte_size(state)} bytes of tensors); save s {saves}, restore s {restores}")
+        shutil.rmtree(tmp)
+        shutil.rmtree(f"{RESUME_ROOT}/age_{tag}_resumed")
+    shutil.rmtree(f"{RESUME_ROOT}/age_default_full", ignore_errors=True)
+    shutil.rmtree(f"{RESUME_ROOT}/age_default_resumed", ignore_errors=True)
+    return launches, stage1
+
+
+def rrt_phase(ck, stage1: str) -> dict:
+    """Phase 9: RRT stage 2 on the phase-8 store, then ``--evaluate`` of its
+    own store. Returns the stage-2 launches."""
+    from imbalanced_regression_tpu_torch.tasks import age
+    from imbalanced_regression_tpu_torch.utils.checkpoint import read_checkpoint
+    from imbalanced_regression_tpu_torch.utils.config import parse_config
+
+    argv = with_root(RRT_ARGV + ["--pretrained", stage1], f"{RESUME_ROOT}/rrt")
+    store = store_of(parse_config(argv))
+    real_load = age.load_backbone_params
+    loaded = {}
+
+    def recording_load(*args, **kwargs):
+        state = real_load(*args, **kwargs)
+        loaded["head"] = {k: v.clone() for k, v in state.head.state_dict().items()}
+        loaded["fds"] = state.fds
+        return state
+
+    age.load_backbone_params = recording_load
+    try:
+        with cudnn_determinism(True):
+            ck.reset_launch_counts()
+            t0 = time.time()
+            result = age.main(argv)
+            torch.cuda.synchronize()
+            launches = launch_counts(ck)
+            evaluated = age.main(argv + ["--evaluate", "--resume", store])
+    finally:
+        age.load_backbone_params = real_load
+    log(f"RRT stage 2: {time.time() - t0:.1f}s with the evaluation, launches {launches}")
+    for h in result["history"]:
+        log(f"epoch {h['epoch']}: train_loss {h['train_loss']:.4f} val_l1 {h['val_loss_l1']:.4f} "
+            f"calibrating {h['fds_calibrating']}")
+    assert all(math.isfinite(h["train_loss"]) for h in result["history"]), result["history"]
+    best1 = read_checkpoint(stage1, "best")
+    weights = [k for k, _ in result["state"].backbone.named_parameters()]
+    for which in ("latest", "best"):
+        stage2 = read_checkpoint(store, which)
+        changed = [k for k in weights
+                   if not torch.equal(stage2["backbone"][k], best1["backbone"][k])]
+        assert not changed, f"RRT stage 2 ({which}) moved backbone weights: {changed[:5]}"
+    head = result["state"].head.state_dict()
+    assert not any(torch.equal(head[k], v.to(head[k].device)) for k, v in loaded["head"].items()), \
+        "the head did not move"
+    snap, final = loaded["fds"], result["final_fds"]
+    assert (snap.running_var_last_epoch != 1).any(), "stage 1's best holds no FDS snapshot"
+    assert result["history"][1]["fds_calibrating"], "epoch 1 did not calibrate"
+    for f in ("running_mean_last_epoch", "running_var_last_epoch", "smoothed_mean_last_epoch",
+              "smoothed_var_last_epoch"):
+        assert torch.equal(getattr(final, f), getattr(snap, f)), f"{f} is not the restored snapshot"
+    log("RRT stage 2: backbone weights bit-equal to stage 1's best, head moved, epoch 1 "
+        "calibrated with the restored snapshot")
+    assert launches["calibrate_forward"] > 0 and launches["segment_moments"] > 0, launches
+    assert launches["calibrate_backward"] == 0, f"K2 launched under --retrain_fc: {launches}"
+    diffs = payload_diffs(result["test"], evaluated["test"])
+    log(f"--evaluate of the stage-2 store: test {evaluated['test']} (stage 2's own "
+        f"{result['test']}); equal: {not diffs}")
+    assert not diffs, diffs
+    return launches
+
+
+def depth_resume_phase(ck) -> dict:
+    """Phase 10. Returns the launches of its three runs."""
+    from imbalanced_regression_tpu_torch.tasks import nyud2
+    from imbalanced_regression_tpu_torch.utils.checkpoint import checkpoint_path
+
+    full_argv = with_root(DEPTH_RESUME_ARGV, f"{RESUME_ROOT}/depth_full")
+    resumed_argv = with_root(DEPTH_RESUME_ARGV, f"{RESUME_ROOT}/depth_resumed")
+    full_store = store_of(nyud2.parse_nyud_config(full_argv))
+    resumed_store = store_of(nyud2.parse_nyud_config(resumed_argv))
+    with cudnn_determinism(True):
+        t0 = time.time()
+        ck.reset_launch_counts()
+        full = nyud2.main(full_argv)
+        torch.cuda.synchronize()
+        full_launches = launch_counts(ck)
+        resumed, killed, resumed_launches = killed_and_resumed(ck, nyud2, resumed_argv,
+                                                               resumed_store)
+    diffs = resumed_equal(full, resumed, ("test", "best_rmse", "best_epoch"), full_store,
+                          resumed_store)
+    log(f"depth resume: {time.time() - t0:.1f}s for the three runs; uninterrupted RMSE "
+        f"{full['test']['overall']['RMSE']:.6f} best epoch {full['best_epoch']}, resumed "
+        f"{resumed['test']['overall']['RMSE']:.6f} best epoch {resumed['best_epoch']}; bit-equal: "
+        f"{not diffs}" + (f" (differs: {diffs[:8]})" if diffs else ""))
+    log(f"  launches: uninterrupted {full_launches}, killed {killed}, resumed {resumed_launches}")
+    log(f"depth checkpoint: {os.path.getsize(checkpoint_path(full_store, 'latest'))} bytes on disk")
+    assert not diffs, f"the resumed depth run differs from the uninterrupted one: {diffs[:8]}"
+    for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+        assert resumed_launches[name] > 0, f"{name} was not launched on the resumed depth run"
+    shutil.rmtree(RESUME_ROOT)
+    return add_counts(add_counts(full_launches, killed), resumed_launches)
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int) -> None:
     """Where the time of a train step goes: the last ``steps`` of
     ``steps_in`` under ``torch.profiler``, after the others as warm-up.
@@ -651,27 +933,39 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda:0")
+    floor = graph_floor_ms(dev)
     age_records, depth_records = kernel_phase(ck, cal, dev)
     age_launches = main_path_phase(ck)
     depth_launches, depth_result = depth_path_phase(ck)
     stats_launches, stats_records = depth_stats_phase(ck, depth_result)
-    depth_launches["segment_moments_v2"] = stats_launches["segment_moments_v2"]
+    del depth_result  # the depth model and its optimizer state
+    # phase 6 counts for K4 only: K3's launch there is a comparison
+    stats_launches = {k: v if k == "segment_moments_v2" else 0 for k, v in stats_launches.items()}
     depth_records.update(stats_records)
     resize_phase(dev)
+    resume_launches, stage1 = age_resume_phase(ck)
+    rrt_launches = rrt_phase(ck, stage1)
+    depth_resume_launches = depth_resume_phase(ck)
     if args.profile:
         profile_phase()
 
+    # launches by phase: the age shape's records count phases 4, 8 and 9,
+    # the depth shape's phases 5, 6 (K4) and 10
+    age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches}
+    depth_phases = {"5": depth_launches, "6": stats_launches, "10": depth_resume_launches}
     kernels = []
-    for records, launches in ((age_records, age_launches), (depth_records, depth_launches)):
+    for records, phases in ((age_records, age_phases), (depth_records, depth_phases)):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
+            by_phase = {p: n[name] for p, n in phases.items()}
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"imbalanced_regression_tpu_torch/csrc/{SOURCES[name]}",
-                "replaces": REPLACES[name], "shape": r["shape"], "launches": launches[name],
+                "replaces": REPLACES[name], "shape": r["shape"], "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": r["library_ms"]})
+                "graph_floor_ms": floor, "library_ms": r["library_ms"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -12,10 +12,12 @@ way):
   ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``.
 
 Flax names: the stem is ``Conv_0``/``BatchNorm_0``; the blocks are
-``Bottleneck_{k}``, numbered globally across stages; inside a block
-``Conv_0..2``/``BatchNorm_0..2``, with the downsample at
-``Conv_3``/``BatchNorm_3``; the head is ``Dense_0``. A stage starts at every
-block that has a downsample.
+``Bottleneck_{k}`` (or ``BasicBlock_{k}`` for ResNet-18/34), numbered
+globally across stages; inside a block ``Conv_0..2``/``BatchNorm_0..2``
+(``Conv_0..1`` in a BasicBlock), with the downsample after them at
+``Conv_3``/``BatchNorm_3`` (``Conv_2``/``BatchNorm_2``); the head is
+``Dense_0``. A stage starts at every block after the first that has a
+downsample (a BasicBlock stage 0 has none).
 
 The depth encoder-decoder (:func:`depth_from_flax`) keeps the ResNet under
 ``encoder`` and names the rest in call order: ``Conv_0``/``BatchNorm_0``
@@ -24,11 +26,16 @@ per encoder stage), ``Conv_1..3``/``BatchNorm_1..3`` (the MFF fuse and the
 two R-trunk convs); inside an ``UpProjection``, ``Conv_0..2``/
 ``BatchNorm_0..2`` in the order conv1, conv1_2, conv2. Its head is
 ``Conv_0`` with a bias.
+
+:func:`from_torchvision_resnet` takes a torchvision-format ResNet state dict
+(the ImageNet weights the NYUD2 reference loads into its encoder); the
+port's ResNets use torchvision's names, so it only filters and checks them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
@@ -68,21 +75,23 @@ def from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> 
 def _backbone_from_flax(params: dict, stats: dict) -> dict:
     sd = {"conv1.weight": _conv(params["Conv_0"])}
     sd.update(_bn("bn1", params["BatchNorm_0"], stats["BatchNorm_0"]))
-    num_blocks = sum(1 for k in params if k.startswith("Bottleneck_"))
+    block, n_convs = ("Bottleneck", 3) if "Bottleneck_0" in params else ("BasicBlock", 2)
+    down = n_convs  # the downsample's Conv_/BatchNorm_ index
+    num_blocks = sum(1 for k in params if k.startswith(f"{block}_"))
     stage, index = 0, -1
     for k in range(num_blocks):
-        bp, bs = params[f"Bottleneck_{k}"], stats[f"Bottleneck_{k}"]
-        if "Conv_3" in bp and k > 0:  # first block of a new stage
+        bp, bs = params[f"{block}_{k}"], stats[f"{block}_{k}"]
+        if f"Conv_{down}" in bp and k > 0:  # first block of a new stage
             stage, index = stage + 1, 0
         else:
             index += 1
         t = f"layer{stage + 1}.{index}"
-        for j in range(3):
+        for j in range(n_convs):
             sd[f"{t}.conv{j + 1}.weight"] = _conv(bp[f"Conv_{j}"])
             sd.update(_bn(f"{t}.bn{j + 1}", bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"]))
-        if "Conv_3" in bp:
-            sd[f"{t}.downsample.0.weight"] = _conv(bp["Conv_3"])
-            sd.update(_bn(f"{t}.downsample.1", bp["BatchNorm_3"], bs["BatchNorm_3"]))
+        if f"Conv_{down}" in bp:
+            sd[f"{t}.downsample.0.weight"] = _conv(bp[f"Conv_{down}"])
+            sd.update(_bn(f"{t}.downsample.1", bp[f"BatchNorm_{down}"], bs[f"BatchNorm_{down}"]))
     return sd
 
 
@@ -112,6 +121,41 @@ def depth_from_flax(variables_np: dict | None, head_params_np: dict | None = Non
     if head_params_np is not None:
         conv = head_params_np["Conv_0"]
         out["head"] = {"conv.weight": _conv(conv), "conv.bias": _t(conv["bias"])}
+    return out
+
+
+_BN_KEYS = r"(weight|bias|running_mean|running_var)"
+# the keys of the port's ResNetBackbone / ResNetBasicBackbone, which are
+# torchvision's minus ``fc.*`` and ``num_batches_tracked``
+_RESNET_KEY = re.compile(
+    rf"conv1\.weight|bn1\.{_BN_KEYS}"
+    rf"|layer\d+\.\d+\.(conv\d\.weight|bn\d\.{_BN_KEYS}|downsample\.0\.weight"
+    rf"|downsample\.1\.{_BN_KEYS})")
+
+
+def normalize_state_dict(sd: dict) -> dict:
+    """Unwrap ``{'state_dict': ...}`` / ``{'model': ...}`` containers and strip
+    the ``module.`` prefix of a ``DataParallel`` save (as
+    ``tools/convert_torch.normalize_state_dict`` does)."""
+    for wrapper in ("state_dict", "model"):
+        if wrapper in sd and isinstance(sd[wrapper], dict):
+            sd = sd[wrapper]
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def from_torchvision_resnet(state_dict: dict) -> dict:
+    """A torchvision ResNet state dict as a float32 state dict for the port's
+    ResNet backbones (e.g. ``DepthEncoderDecoder.encoder``): ``fc.*`` and
+    ``num_batches_tracked`` are dropped, any other key that is not a
+    backbone key raises ``KeyError``. Shapes are checked by the strict
+    ``load_state_dict`` that takes the result."""
+    out = {}
+    for k, v in normalize_state_dict(state_dict).items():
+        if k.startswith("fc.") or k.endswith("num_batches_tracked"):
+            continue
+        if not _RESNET_KEY.fullmatch(k):
+            raise KeyError(f"not a ResNet backbone key: {k!r}")
+        out[k] = torch.as_tensor(v).detach().to(torch.float32).clone()
     return out
 
 

@@ -21,20 +21,56 @@ The FDS hook point is the boundary between :class:`ResNetBackbone` (returns
 the pooled encoding) and :class:`RegressionHead`: the trainer calibrates
 encodings between the two, where the reference calls ``self.FDS.smooth``
 before ``self.linear`` (``imdb-wiki-dir/resnet.py:140-148``).
+
+The family: bottleneck ResNet-50/101/152 (:class:`ResNetBackbone`) and the
+BasicBlock ResNet-18/34 (:class:`ResNetBasicBackbone`, 512-d encoding), with
+the JAX package's ``remat`` modes per residual block:
+
+- ``"block"``: ``torch.utils.checkpoint`` (non-reentrant) keeps only the
+  block's input and recomputes the whole block in the backward pass;
+- ``"conv_outs"``: a selective checkpoint that saves the convolution outputs
+  and recomputes batch norm and ReLU (JAX's ``save_only_these_names``
+  policy on the tagged conv outputs).
+
+The recompute runs each ``BatchNorm.forward`` a second time; it normalizes
+with the batch statistics as before but leaves the running buffers alone, so
+a remat step folds each batch into them once, as a plain step does.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 BN_MOMENTUM = 0.9  # Flax convention: running = 0.9 * running + 0.1 * batch
 BN_EPS = 1e-5
+REMAT_MODES = ("conv_outs", "block")
+
+# set while a checkpointed block is recomputed: batch norm then leaves its
+# running statistics as the block's first forward left them
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    before = getattr(_recompute, "active", False)
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = before
 
 
 class BatchNorm(nn.Module):
@@ -65,6 +101,8 @@ class BatchNorm(nn.Module):
         # the biased variance it normalized with (float32 for bf16 input)
         out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
                                                     True, 0.0, BN_EPS)
+        if getattr(_recompute, "active", False):
+            return out
         with torch.no_grad():
             var = invstd.double().pow(-2).sub(BN_EPS).float()
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
@@ -82,6 +120,41 @@ def _he_normal_fan_out(w: torch.Tensor, generator: torch.Generator | None) -> No
     fan_out = w.shape[0] * w.shape[2] * w.shape[3]
     with torch.no_grad():
         w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+_CONV_OPS = (torch.ops.aten.convolution.default,)
+
+
+def _save_conv_outs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="conv_outs"``: keep the
+    convolution outputs, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _CONV_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_block(block: nn.Module, x: torch.Tensor, mode: str) -> torch.Tensor:
+    """``block(x)`` under the ``mode`` checkpoint (see :data:`REMAT_MODES`).
+    The first call of ``run`` is the forward; any later one is the
+    backward's recompute, which must not update the BN running buffers."""
+    calls = 0
+
+    def run(inp):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return block(inp)
+        with _recomputing():
+            return block(inp)
+
+    context = {}
+    if mode == "conv_outs":
+        context["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_conv_outs)
+    return checkpoint(run, x, use_reentrant=False, **context)
+
+
+def _check_remat(remat: str | None) -> None:
+    if remat not in (None, *REMAT_MODES):
+        raise ValueError(f"unknown remat mode {remat!r}; use one of {REMAT_MODES}")
 
 
 class Bottleneck(nn.Module):
@@ -111,19 +184,49 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
+class BasicBlock(nn.Module):
+    """3x3 → 3x3 basic residual block (ResNet-18/34, reference
+    ``imdb-wiki-dir/resnet.py:14-38``); the downsample is a 1x1 conv + BN."""
+
+    expansion = 1
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = _conv(in_features, features, 3, stride)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = _conv(features, features, 3)
+        self.bn2 = BatchNorm(features)
+        self.downsample = None
+        if in_features != features or stride != 1:
+            self.downsample = nn.Sequential(_conv(in_features, features, 1, stride),
+                                            BatchNorm(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
 class ResNetBackbone(nn.Module):
     """Stem + residual stages + global average pool → [N, 2048] encoding.
 
     Takes NHWC images. With ``return_features=True`` the per-stage feature
     maps (NCHW, channels_last) are returned instead (the NYUD2 ``E_resnet``
-    encoder, ``nyud2-dir/models/modules.py:33-59``)."""
+    encoder, ``nyud2-dir/models/modules.py:33-59``). ``remat`` checkpoints
+    each residual block while gradients are on (see :data:`REMAT_MODES`)."""
+
+    block_cls = Bottleneck
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 return_features: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 return_features: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 remat: str | None = None):
         super().__init__()
+        _check_remat(remat)
         self.stage_sizes = tuple(stage_sizes)
         self.return_features = return_features
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = _conv(3, width, 7, 2)
         self.bn1 = BatchNorm(width)
         in_features = width
@@ -131,8 +234,8 @@ class ResNetBackbone(nn.Module):
             blocks = []
             for block in range(num_blocks):
                 stride = 2 if stage > 0 and block == 0 else 1
-                blocks.append(Bottleneck(in_features, width * 2**stage, stride))
-                in_features = width * 2**stage * Bottleneck.expansion
+                blocks.append(self.block_cls(in_features, width * 2**stage, stride))
+                in_features = width * 2**stage * self.block_cls.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.out_features = in_features
         self.reset_parameters()
@@ -154,7 +257,11 @@ class ResNetBackbone(nn.Module):
             x = F.max_pool2d(x, 3, 2, padding=1)  # pads with -inf
             features = []
             for stage in range(len(self.stage_sizes)):
-                x = getattr(self, f"layer{stage + 1}")(x)
+                for block in getattr(self, f"layer{stage + 1}"):
+                    if self.remat and torch.is_grad_enabled():
+                        x = _remat_block(block, x, self.remat)
+                    else:
+                        x = block(x)
                 features.append(x)
             if self.return_features:
                 return tuple(features)
@@ -197,5 +304,40 @@ class RegressionHead(nn.Module):
         return self.linear(encoding.to(torch.float32))
 
 
-def resnet50_backbone(dtype: torch.dtype = torch.bfloat16) -> ResNetBackbone:
-    return ResNetBackbone(stage_sizes=(3, 4, 6, 3), dtype=dtype)
+class ResNetBasicBackbone(ResNetBackbone):
+    """BasicBlock variant (ResNet-18/34): the same stem, stages and pool with
+    :class:`BasicBlock`, a ``width * 8``-d encoding (512 at width 64)."""
+
+    block_cls = BasicBlock
+
+    def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), width: int = 64,
+                 dtype: torch.dtype = torch.bfloat16, remat: str | None = None):
+        super().__init__(stage_sizes, width, dtype=dtype, remat=remat)
+
+
+def resnet50_backbone(dtype: torch.dtype = torch.bfloat16,
+                      remat: str | None = None) -> ResNetBackbone:
+    return ResNetBackbone(stage_sizes=(3, 4, 6, 3), dtype=dtype, remat=remat)
+
+
+def resnet101_backbone(dtype: torch.dtype = torch.bfloat16,
+                      remat: str | None = None) -> ResNetBackbone:
+    """Deep bottleneck variant (reference ``nyud2-dir/models/resnet.py:186-194``)."""
+    return ResNetBackbone(stage_sizes=(3, 4, 23, 3), dtype=dtype, remat=remat)
+
+
+def resnet152_backbone(dtype: torch.dtype = torch.bfloat16,
+                      remat: str | None = None) -> ResNetBackbone:
+    """Deepest bottleneck variant (reference ``nyud2-dir/models/resnet.py:197-205``)."""
+    return ResNetBackbone(stage_sizes=(3, 8, 36, 3), dtype=dtype, remat=remat)
+
+
+def resnet18_backbone(dtype: torch.dtype = torch.bfloat16,
+                      remat: str | None = None) -> ResNetBasicBackbone:
+    return ResNetBasicBackbone(stage_sizes=(2, 2, 2, 2), dtype=dtype, remat=remat)
+
+
+def resnet34_backbone(dtype: torch.dtype = torch.bfloat16,
+                      remat: str | None = None) -> ResNetBasicBackbone:
+    """BasicBlock variant at ResNet-50 depth (``nyud2-dir/models/resnet.py:164-172``)."""
+    return ResNetBasicBackbone(stage_sizes=(3, 4, 6, 3), dtype=dtype, remat=remat)

@@ -12,10 +12,17 @@ Run: ``python -m imbalanced_regression_tpu_torch.tasks.nyud2 --data_dir
 for the synthetic stand-in at the reference's 228x304 crop (depth at
 114x152). Runs on the GPU unless ``--device cpu`` is given.
 
-Checkpoints are not ported: ``--save_ckpt 0`` (the in-memory best state) is
-required, and ``--resume``, ``--evaluate``, ``--ckpt_every_steps``,
-``--pretrained_encoder`` (a torchvision ``.pth``), ``--retrain_fc`` and
-``--num_devices > 1`` raise ``NotImplementedError``.
+Checkpoints as in ``tasks/age.py``: ``--save_ckpt 1`` (the default) writes
+``latest.pt``/``best.pt`` every epoch, ``--ckpt_every_steps N`` also inside
+an epoch, ``--resume <store dir>`` goes on from ``latest`` (from ``best`` if
+there is no ``latest``), ``--evaluate --resume <store dir>`` tests ``best``.
+``--pretrained_encoder <file.pth>`` initializes the encoder from a
+torchvision-format ResNet state dict (the reference's ImageNet weights,
+``nyud2-dir/train.py:110-114``). ``--retrain_fc`` freezes the whole
+encoder-decoder and trains ``DepthHead`` only; ``--pretrained <store dir>``
+(which the JAX driver does not read) loads the encoder-decoder and FDS
+statistics of a stage-1 ``best`` first, for the two-stage RRT.
+``--num_devices > 1`` and ``--max_steps_per_run`` are not ported.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imbalanced_regression_tpu_torch.convert import from_torchvision_resnet
 from imbalanced_regression_tpu_torch.data.batching import batch_iterator, eval_batches
 from imbalanced_regression_tpu_torch.data.nyud2 import (
     DEPTH_HW,
@@ -50,6 +58,12 @@ from imbalanced_regression_tpu_torch.models.depth_encdec import (
 from imbalanced_regression_tpu_torch.ops.lds import prepare_weights_depth
 from imbalanced_regression_tpu_torch.tasks.age import setup_logging
 from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig, snapshot_state
+from imbalanced_regression_tpu_torch.utils.checkpoint import (
+    has_checkpoint,
+    load_backbone_params,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
 from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
 from imbalanced_regression_tpu_torch.utils.metrics import DepthEvaluator
@@ -71,7 +85,7 @@ class NYUDConfig(ExperimentConfig):
     test_batch_size: int = 8
     fds_subset_limit: int = 0  # cap FDS subset size (0 = all)
     # ImageNet-pretrained encoder (the reference loads torchvision's
-    # resnet50 weights, nyud2-dir/train.py:110-114); not ported yet
+    # resnet50 weights, nyud2-dir/train.py:110-114): a torchvision .pth
     pretrained_encoder: str = ""
     # model scaling knobs (tests shrink these)
     stage_sizes: tuple[int, ...] = (3, 4, 6, 3)
@@ -87,7 +101,7 @@ def parse_nyud_config(argv=None) -> NYUDConfig:
     p.add_argument("--test_batch_size", type=int, default=d.test_batch_size)
     p.add_argument("--fds_subset_limit", type=int, default=d.fds_subset_limit)
     p.add_argument("--pretrained_encoder", type=str, default=d.pretrained_encoder,
-                   help="torch .pth with ImageNet encoder weights (not ported yet)")
+                   help="torchvision-format ResNet .pth state dict for the encoder")
     p.add_argument("--mff_features", type=int, default=d.mff_features,
                    help="MFF per-scale channels (reference: 16)")
     p.add_argument("--decoder_min_features", type=int, default=d.decoder_min_features,
@@ -99,14 +113,9 @@ def parse_nyud_config(argv=None) -> NYUDConfig:
 
 
 def check_supported(config: NYUDConfig) -> None:
-    """Raise for the flags whose code paths are not ported yet."""
+    """Raise for the flags whose code paths are not ported."""
     unported = {
-        "--resume": bool(config.resume),
-        "--evaluate": config.evaluate,
-        "--ckpt_every_steps": bool(config.ckpt_every_steps),
-        "--save_ckpt 1 (checkpoints)": bool(config.save_ckpt),
-        "--pretrained_encoder": bool(config.pretrained_encoder),
-        "--retrain_fc": config.retrain_fc,
+        "--max_steps_per_run": bool(config.max_steps_per_run),
         "--num_devices > 1": (config.num_devices or 1) > 1,
     }
     missing = [flag for flag, used in unported.items() if used]
@@ -134,7 +143,7 @@ def build_nyud_trainer(config: NYUDConfig) -> Trainer:
 
     # lr * 0.1 ** (epoch // 5) (train.py:230-234): a milestone every 5 epochs
     tcfg = TrainerConfig(loss=config.loss, lr=config.lr, adam_weight_decay=config.weight_decay,
-                         schedule=tuple(range(5, config.epoch, 5)))
+                         schedule=tuple(range(5, config.epoch, 5)), retrain_fc=config.retrain_fc)
     backbone = DepthEncoderDecoder(stage_sizes=tuple(config.stage_sizes), width=config.width,
                                    mff_features=config.mff_features,
                                    decoder_min_features=config.decoder_min_features,
@@ -188,11 +197,23 @@ def build_data(config: NYUDConfig):
     return train, fds_subset, test
 
 
+def load_pretrained_encoder(state, path: str):
+    """Initialize the encoder from a torchvision-format ResNet state dict
+    (``.pth``), as the reference's ``resnet.resnet50(pretrained=True)``
+    (``nyud2-dir/train.py:110-114``); ``fc.*`` is dropped and any other key
+    the encoder lacks raises."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    state.backbone.encoder.load_state_dict(from_torchvision_resnet(sd))
+    return state
+
+
 def run(config: NYUDConfig) -> dict:
     """Train with a per-epoch FDS pass and test, keeping the best state (by
-    test RMSE) in memory. Returns the best epoch's test metrics, the
-    per-epoch history, the trainer, its state after the last epoch and the
-    snapshot of the best one."""
+    test RMSE) on disk (``--save_ckpt 1``) or in memory. Returns the best
+    epoch's test metrics, the per-epoch history of this run, the trainer,
+    its state (after the last epoch; the best one's with ``--save_ckpt 1``)
+    and, with ``--save_ckpt 0``, the snapshot of the best one.
+    ``--evaluate`` returns the test metrics only."""
     check_supported(config)
     store_dir = os.path.join(config.store_root, config.derived_store_name())
     setup_logging(store_dir)
@@ -203,21 +224,56 @@ def run(config: NYUDConfig) -> dict:
     logger.info("Data: train=%d fds_subset=%d test=%d (device=%s)", len(train["target"]),
                 len(fds_subset["target"]), len(test["target"]), trainer.device)
     state = trainer.init_state(config.seed)
+    if config.pretrained_encoder:
+        state = load_pretrained_encoder(state, config.pretrained_encoder)
+        logger.info("Encoder initialized from %s", config.pretrained_encoder)
+
+    if config.evaluate:
+        assert config.resume, "Specify a trained model via --resume"
+        state, _, _ = restore_checkpoint(config.resume, state, which="best")
+        metric = test_epoch(trainer, state, test, config.test_batch_size)
+        _log_metrics(metric)
+        return {"test": metric}
+
+    if config.pretrained:
+        state = load_backbone_params(config.pretrained, state)
+        logger.info("Loaded pretrained encoder-decoder: %s", config.pretrained)
 
     writer = MetricsWriter(store_dir)
     best_rmse, best_metric, best_epoch, best_snapshot = float("inf"), None, -1, None
+    # per-epoch-seeded shuffles + step-located resume, as in tasks/age.py
+    # (the reference restarts whole epochs, nyud2-dir/train.py:117-126)
     steps_per_epoch = max(len(train["target"]) // config.batch_size, 1)
     fds_batch = min(config.batch_size, len(fds_subset["target"]))
+    start_epoch, start_step = 0, 0
+    if config.resume:
+        # the reference's --resume restores the latest checkpoint
+        # (train.py:117-126); fall back to best
+        for which in ("latest", "best"):
+            if has_checkpoint(config.resume, which):
+                state, start_epoch, best_rmse = restore_checkpoint(config.resume, state, which)
+                start_step = state.step - start_epoch * steps_per_epoch
+                if not 0 <= start_step <= steps_per_epoch:
+                    start_step = 0
+                logger.info("Resumed %s (%s) at epoch %d step %d (best RMSE %.3f)",
+                            config.resume, which, start_epoch, start_step, best_rmse)
+                break
     history = []
-    for epoch in range(config.epoch):
+    for epoch in range(start_epoch, config.epoch):
         calibrating = bool(
             config.fds and epoch >= trainer.fds_config.start_smooth
             and ((state.fds.running_mean_last_epoch != 0).any()
                  | (state.fds.running_var_last_epoch != 1).any()).item())
+        step_hook = None
+        if config.save_ckpt and config.ckpt_every_steps:
+            def step_hook(s, _step, e=epoch):
+                save_checkpoint(store_dir, s, e, best_rmse, is_best=False)
+        first = start_step if epoch == start_epoch else 0
         t0 = time.time()
         state, train_loss = trainer.train_epoch(
             state, batch_iterator(train, config.batch_size,
-                                  rng=np.random.default_rng((config.seed, epoch))), epoch)
+                                  rng=np.random.default_rng((config.seed, epoch))), epoch,
+            start_step=first, step_hook=step_hook, hook_every=config.ckpt_every_steps)
         train_dt = time.time() - t0  # train_epoch ends in a device sync
         # FDS pass over the clean FDS subset, in order (train.py:216-228)
         t1 = time.time()
@@ -228,10 +284,14 @@ def run(config: NYUDConfig) -> dict:
         fds_dt = time.time() - t1
         metric = test_epoch(trainer, state, test, config.test_batch_size)
         rmse = metric["overall"]["RMSE"]
-        if rmse < best_rmse:
+        is_best = rmse < best_rmse
+        if is_best:
             best_rmse, best_metric, best_epoch = rmse, metric, epoch
+        if config.save_ckpt:
+            save_checkpoint(store_dir, state, epoch + 1, best_rmse, is_best)
+        elif is_best:
             best_snapshot = snapshot_state(state)
-        throughput = steps_per_epoch * config.batch_size / train_dt
+        throughput = (steps_per_epoch - first) * config.batch_size / train_dt
         rss, peak_rss = host_memory_gb()
         scalars = {"train_loss": train_loss, "test_rmse": rmse, "images_per_sec": throughput,
                    "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
@@ -244,6 +304,11 @@ def run(config: NYUDConfig) -> dict:
                     fds_dt)
 
     writer.close()
+    if config.save_ckpt:
+        # the best epoch may predate a resume: test the best checkpoint
+        state, after_epoch, _ = restore_checkpoint(store_dir, state, which="best")
+        best_epoch, best_metric = after_epoch - 1, test_epoch(trainer, state, test,
+                                                               config.test_batch_size)
     logger.info("Best epoch: %d; RMSE: %.3f", best_epoch, best_rmse)
     _log_metrics(best_metric)
     return {"test": best_metric, "best_rmse": best_rmse, "best_epoch": best_epoch,

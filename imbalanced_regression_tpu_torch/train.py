@@ -23,12 +23,28 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   ``batch["weight"]``.
 - **Dense hooks**: the FDS hook may be a per-pixel map [N, H, W, C]; the
   calibration and the stats pass take it as N·H·W rows.
+- **Optimizers**: Adam (torch-style L2 ``adam_weight_decay``) or SGD with
+  momentum and L2 ``weight_decay`` (``torch.optim.SGD`` with no dampening is
+  optax's ``add_decayed_weights`` → ``sgd(momentum)`` at unit lr, scaled by
+  the scheduled lr). Clipping by global norm (``clip_grad_norm``) follows
+  optax's formula and runs before the optimizer, so before weight decay.
+- **RRT** (``retrain_fc``, two-stage regressor re-training): the backbone's
+  parameters stop requiring gradients and the optimizer holds the head's
+  only (the JAX package's masked optimizer, ``imdb-wiki-dir/train.py:154-172``);
+  the backbone stays in train mode, so its BN running statistics still
+  update, and FDS still calibrates in the forward (K1), but with no gradient
+  to carry back through the encoding the K2 backward never launches.
+- **Mid-epoch resume**: ``train_epoch(start_step=k)`` skips the first k
+  batches of the per-epoch stream without moving them to the device, and a
+  ``step_hook`` sees the post-step state (drivers write checkpoints there);
+  the device generator rides in the checkpoint, so a resumed epoch draws
+  the uninterrupted run's augmentation.
 
 The state is mutable: a step updates the modules, the optimizer and the
 generator in place and returns the same :class:`TrainState`.
 
-Not ported yet: SGD, gradient clipping, RRT head-only training
-(``retrain_fc``), ``target_scale`` and the device-resident indexed mode.
+Not ported yet: the device-resident indexed mode (``bind_device_data``),
+which only STS-B uses.
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from imbalanced_regression_tpu_torch.fds import (
     fds_zero_moments,
 )
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device a run executes on: CUDA unless the caller asks for the
@@ -77,16 +94,32 @@ def set_numerics() -> None:
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     """Optimization config mirroring the reference flags
-    (``imdb-wiki-dir/train.py:49-66``): Adam with a per-epoch MultiStep lr;
-    the age suites without weight decay, NYUD2 with L2 1e-4
+    (``imdb-wiki-dir/train.py:49-66``) and the JAX package's
+    ``TrainerConfig``: Adam or SGD with a per-epoch MultiStep lr; the age
+    suites' Adam without weight decay, NYUD2's with L2 1e-4
     (``nyud2-dir/train.py:146``)."""
 
     loss: str = "l1"
+    optimizer: str = "adam"  # 'adam' | 'sgd'
     lr: float = 1e-3
+    momentum: float = 0.9  # SGD
+    weight_decay: float = 1e-4  # SGD's L2
     # torch-Adam L2: gradient += wd * param before the moments, as the JAX
     # package's optax.add_decayed_weights before adam
     adam_weight_decay: float = 0.0
     schedule: tuple[int, ...] = (60, 80)  # epochs at which lr drops 10x
+    epochs: int = 90
+    retrain_fc: bool = False
+    clip_grad_norm: float | None = None  # STS uses 5.0 (trainer.py:40)
+    huber_beta: float = 1.0
+    target_scale: float = 1.0  # STS computes loss on target/5 (models.py:101-107)
+
+    def loss_fn(self) -> Callable:
+        fn = LOSS_REGISTRY[self.loss]
+        if self.loss == "huber":
+            beta = self.huber_beta
+            return lambda p, t, w: fn(p, t, w, beta=beta)
+        return fn
 
 
 @dataclasses.dataclass
@@ -126,21 +159,31 @@ class Trainer:
         self.weight_fn = weight_fn
         self.device = resolve_device(device)
         set_numerics()
-        self._loss_fn = LOSS_REGISTRY[config.loss]
+        if config.optimizer not in ("adam", "sgd"):
+            raise ValueError(f"optimizer must be 'adam' or 'sgd', got {config.optimizer!r}")
+        self._loss_fn = config.loss_fn()
 
     # ------------------------------------------------------------------ setup
     def init_state(self, seed: int = 0) -> TrainState:
         """Initialize the weights from ``seed`` (on the CPU, so the draw does
         not depend on the device), move the modules to the device and build
-        the optimizer and the FDS state."""
+        the optimizer and the FDS state. Under ``retrain_fc`` the backbone is
+        frozen and the optimizer holds the head's parameters only."""
+        cfg = self.config
         init_gen = torch.Generator().manual_seed(seed)
         self.backbone.reset_parameters(init_gen)
         self.head.reset_parameters(init_gen)
         backbone = self.backbone.to(self.device, memory_format=torch.channels_last)
         head = self.head.to(self.device)
-        params = list(backbone.parameters()) + list(head.parameters())
-        optimizer = torch.optim.Adam(params, lr=self.config.lr,
-                                     weight_decay=self.config.adam_weight_decay)
+        backbone.requires_grad_(not cfg.retrain_fc)
+        params = list(head.parameters())
+        if not cfg.retrain_fc:
+            params = list(backbone.parameters()) + params
+        if cfg.optimizer == "sgd":
+            optimizer = torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
+                                        weight_decay=cfg.weight_decay, dampening=0.0)
+        else:
+            optimizer = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.adam_weight_decay)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         fds = fds_init(self.fds_config, self.device) if self.fds_config else None
         return TrainState(step=0, backbone=backbone, head=head, optimizer=optimizer, fds=fds,
@@ -170,23 +213,44 @@ class Trainer:
                                   bucket_idx=b.get("bucket_idx"))
         pred = state.head(encoding, generator=state.generator)
         weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
-        loss = self._loss_fn(pred, b["target"], weights)
+        scale = self.config.target_scale
+        target = b["target"] / scale if scale != 1.0 else b["target"]
+        loss = self._loss_fn(pred, target, weights)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.config.clip_grad_norm is not None:
+            clip_by_global_norm([p.grad for g in state.optimizer.param_groups for p in g["params"]
+                                 if p.grad is not None], self.config.clip_grad_norm)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach(), pred.detach()
 
-    def train_epoch(self, state: TrainState, batches: Iterable[dict], epoch: int):
+    def train_epoch(self, state: TrainState, batches: Iterable[dict], epoch: int, *,
+                    start_step: int = 0, step_hook: Callable | None = None,
+                    hook_every: int = 0):
         """One epoch over host batches; returns (state, mean train loss).
 
         Losses stay on the device until the epoch ends; the loss-explosion
-        guard (reference train.py:256) therefore fires at epoch granularity."""
+        guard (reference train.py:256) therefore fires at epoch granularity.
+
+        ``start_step`` skips the first batches of the (per-epoch-seeded)
+        stream without moving them to the device, so a resumed epoch goes on
+        with the uninterrupted run's step sequence. ``step_hook(state,
+        step_in_epoch)`` is called every ``hook_every`` completed steps with
+        the post-step state, after a device sync."""
         losses, counts = [], []
-        for batch in batches:
+        it = iter(batches)
+        for _ in range(start_step):
+            if next(it, None) is None:
+                break
+        for i, batch in enumerate(it, start=start_step):
             counts.append(len(batch["target"]))
             state, loss, _ = self.train_step(state, batch, epoch)
             losses.append(loss)
+            if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                step_hook(state, i + 1)
         if not losses:
             return state, 0.0
         losses = torch.stack(losses).cpu().numpy()  # single sync
@@ -241,6 +305,20 @@ class Trainer:
             preds.append(self.predict_batch(state, batch, n))
             targets.append(np.asarray(batch["target"])[:n])
         return np.concatenate(preds), np.concatenate(targets)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
+    """Clip ``grads`` in place by their global norm with optax's formula
+    (``clip_by_global_norm``): ``g`` if ``norm < max_norm``, else ``g / norm
+    * max_norm``. (``torch.nn.utils.clip_grad_norm_`` divides by ``norm +
+    1e-6`` and would drift from the JAX package.) No host sync."""
+    if not grads:
+        return
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
 def snapshot_state(state: TrainState) -> dict:

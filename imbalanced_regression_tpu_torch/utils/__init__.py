@@ -1,2 +1,2 @@
 """Host-side utilities: shot-partitioned evaluation metrics, config, metrics
-logging."""
+logging, checkpoints and meters."""

@@ -51,9 +51,8 @@ def test_age_driver_two_epochs_on_cpu(tmp_path):
             / "metrics.jsonl").exists()
 
 
-@pytest.mark.parametrize("flag", [["--resume", "x"], ["--evaluate"], ["--pretrained", "x"],
-                                  ["--retrain_fc"], ["--ckpt_every_steps", "5"],
-                                  ["--save_ckpt", "1"], ["--optimizer", "sgd"]])
+@pytest.mark.parametrize("flag", [["--max_steps_per_run", "5"], ["--num_devices", "2"],
+                                  ["--synthetic_size", "0"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         age.main(_argv(tmp_path, *flag))
