@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # every phase, as CI on the card runs it
-    python3 chip_smoke.py --profile  # adds profiled windows of age and depth train steps
+    python3 chip_smoke.py --profile  # adds profiled windows of age, depth and STS-B train steps
 
 ``--profile`` is a measurement tool for ``PERF.md``'s step breakdown; no
 check reads it.
@@ -44,7 +44,26 @@ Phases:
    ``--evaluate --resume`` on stage 2's store reproduces its final test;
 10. depth resume: the NYUD2 path with ``--save_ckpt 1 --ckpt_every_steps 2
    --epoch 2``, killed and resumed as in phase 8; equal test metrics, best
-   epoch and checkpoints.
+   epoch and checkpoints;
+11. the STS-B-DIR train path (``tasks/stsb.py``: GloVe + the fused BiLSTM
+   pair encoder at full width in bf16, a 12000-d pair embedding, LDS +
+   FDS in the ``hist`` grouping, indexed training) on a synthetic corpus
+   in the GLUE STS-B layout at STS-B-DIR's split sizes (5,249 / 1,000 /
+   1,000 pairs) with a GloVe-format file of random vectors: 90 iterations
+   of batch 128 (41 an epoch), a validation check every 30, two stats
+   passes; K1 and K2 run in the 49 steps from epoch 1 on, the last 8 with
+   the first pass's statistics (the snapshot a step calibrates with lags
+   one pass, as in the reference);
+12. STS-B resume: the phase-11 run killed right after validation check 1
+   wrote its checkpoint (the validation history inside it) and resumed
+   with ``--resume``; validation history, iterations, test metrics and both
+   checkpoints bit-equal to phase 11's; then ``--evaluate --resume`` on
+   its store.
+
+Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
+B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
+a bucket whose v1 sums to under 1e-10) and times them there; K1 and K2
+bit-equal to their plain versions.
 
 Phase 2 also times the per-node floor of a replayed CUDA graph (a
 one-element ``add_``), which bounds the device time of a kernel at the age
@@ -100,6 +119,15 @@ AGE_RESUME_ARGV = MAIN_ARGV + ["--save_ckpt", "1", "--ckpt_every_steps", "3", "-
 RRT_ARGV = MAIN_ARGV + ["--save_ckpt", "1", "--epoch", "2", "--retrain_fc", "--reweight",
                         "sqrt_inv", "--fds"]
 DEPTH_RESUME_ARGV = DEPTH_ARGV + ["--save_ckpt", "1", "--ckpt_every_steps", "2", "--epoch", "2"]
+# STS-B-DIR: the reference recipe on a synthetic corpus at its split sizes
+STS = (12000, 50)  # (D, B): the pair embedding 2 * 1500 * 4, the histogram buckets
+STS_DIR = "runs/chip_smoke/stsb_data"
+STS_SPLITS = (("train_new.tsv", 5249), ("dev_new.tsv", 1000), ("test_new.tsv", 1000))
+STS_VOCAB = 12000  # made-up words, drawn by a Zipf law
+STS_ARGV = ["--data_dir", STS_DIR, "--word_embs_file", f"{STS_DIR}/glove.txt", "--glove", "1",
+            "--fds", "--lds", "--reweight", "inverse", "--val_interval", "30", "--max_vals", "3",
+            "--cache_dir", f"{STS_DIR}/cache"]
+STS_BATCH = 128  # the recipe's batch: rows per kernel call on the path
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -154,10 +182,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def calibrate_inputs(gen: torch.Generator, dev, n: int, d: int, b: int):
+def calibrate_inputs(gen: torch.Generator, dev, n: int, d: int, b: int, sts_corners: bool = False):
     """Random FDS statistics with the corner cases of the JAX tests: an
     all-zero v1 row, a zero v1 column, a negative v2, ratios beyond the
-    clip range, rows with ok=False and rows with e=-1."""
+    clip range, rows with ok=False and rows with e=-1. ``sts_corners``
+    adds the STS-B ones: a bucket no row falls in (``impute_empty`` fills
+    such buckets' statistics) and rows of a bucket whose positive v1 sums
+    to under 1e-10."""
     r = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(*s, generator=gen, device=dev)  # noqa: E731
     x = r(n, d)
@@ -171,6 +202,10 @@ def calibrate_inputs(gen: torch.Generator, dev, n: int, d: int, b: int):
     v1[5, 3] = 0.0
     v2[6, 1] = -1.0
     v2[7, :64] = 100.0
+    if sts_corners:
+        e[e == b - 1] = b - 2  # bucket b - 1 holds no row
+        v1[3] = 1e-15  # v1sum = d * 1e-15 < 1e-10 at d = 12000: rows gated off
+        e[8:12] = 3
     return x, e, ok, (m1, v1, m2, v2), v1.sum(1)
 
 
@@ -200,12 +235,13 @@ def shape_tag(n: int, d: int, b: int) -> str:
 
 
 def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bool,
-                    iters: int = 50) -> dict:
+                    iters: int = 50, sts: bool = False) -> dict:
     """K1 and K2 against their plain versions at ``n`` rows in each of
     ``modes`` ((mode, clips) pairs); with ``record``, their times and bounds
-    in the first mode too."""
+    in the first mode too. ``sts``: the STS-B corner cases, and float32 K1
+    and K2 bit-equal to their plain versions."""
     results = {}
-    x, e, ok, stats, v1sum = calibrate_inputs(gen, dev, n, d, b)
+    x, e, ok, stats, v1sum = calibrate_inputs(gen, dev, n, d, b, sts_corners=sts)
     # ---- K1 forward, float32 and bf16 input
     for mode, clips in modes:
         for xs in (x, x.to(torch.bfloat16)):
@@ -216,6 +252,8 @@ def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bo
             log(f"K1 calibrate_forward N={n} D={d} mode={mode} x={xs.dtype}: max_abs_err {err:.3e}")
             # IEEE division/sqrt and unfused mul/add, same order: 1e-6
             torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+            if sts and xs.dtype == torch.float32:
+                assert torch.equal(got, want), "K1 is not bit-equal to its plain version"
     mode, clips = modes[0]
     if record:
         args = (x, e, ok, *stats, v1sum, *clips, mode)
@@ -235,6 +273,9 @@ def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bo
         torch.cuda.synchronize()
         log(f"K2 calibrate_backward N={n} D={d} mode={mode_}: max_abs_err {max_err(got, want):.3e}")
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        if sts:
+            plain = cal.calibrate_indexed_grad(g, e, ok, stats[1], stats[3], v1sum, *clips_, mode_)
+            assert torch.equal(got, plain), "K2 is not bit-equal to its plain version"
     if record:
         bargs = (g, e, ok, stats[1], stats[3], v1sum, *clips, mode)
         nbytes, elems = calibrate_bytes(4, e, ok, v1sum, d, tables=2)
@@ -246,13 +287,16 @@ def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bo
     return results
 
 
-def moments_inputs(gen, dev, n: int, d: int, b: int):
+def moments_inputs(gen, dev, n: int, d: int, b: int, empty_bucket: bool = False):
     """Features with a per-column scale (as ``tests/test_pallas.py`` feeds
-    the TPU kernel), every 9th row outside the buckets."""
+    the TPU kernel), every 9th row outside the buckets; with
+    ``empty_bucket``, no row in the last bucket."""
     scale = 0.1 + 29.9 * torch.rand(1, d, generator=gen, device=dev)
     f = torch.randn(n, d, generator=gen, device=dev) * scale + 1.0
     idx = torch.randint(0, b, (n,), generator=gen, device=dev, dtype=torch.int32)
     idx[::9] = -1
+    if empty_bucket:
+        idx[idx == b - 1] = b - 2
     return f, idx
 
 
@@ -325,14 +369,16 @@ def log_plan(ck, n: int, d: int) -> None:
     log(f"K3 plan at N={n} D={d}: {plan}")
 
 
-def check_moments(ck, gen, dev, n: int, d: int, b: int, record: bool, iters: int = 50) -> dict:
-    """K3 and K4 against their plain versions at ``n`` rows, and two runs
-    bit-identical; with ``record``, their times and bounds too (K4's at the
-    age shape are logged only)."""
-    f, idx = moments_inputs(gen, dev, n, d, b)
+def check_moments(ck, gen, dev, n: int, d: int, b: int, record: bool, iters: int = 50,
+                  names=("segment_moments", "segment_moments_v2"),
+                  empty_bucket: bool = False) -> dict:
+    """The moments kernels ``names`` (K3, K4) against their plain versions
+    at ``n`` rows, and two runs bit-identical; with ``record``, their times
+    and bounds too (K4's at the age shape are logged only)."""
+    f, idx = moments_inputs(gen, dev, n, d, b, empty_bucket)
     log_plan(ck, n, d)
     results = {}
-    for name in ("segment_moments", "segment_moments_v2"):
+    for name in names:
         kernel, plain = getattr(ck, name), getattr(ck, f"{name}_plain")
         got, again, want = kernel(f, idx, b), kernel(f, idx, b), plain(f, idx, b)
         torch.cuda.synchronize()
@@ -405,10 +451,11 @@ def graph_floor_ms(dev) -> float:
     return floor
 
 
-def kernel_phase(ck, cal, dev) -> tuple[dict, dict]:
+def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict]:
     """Every kernel against its plain version at the age path's batch
     (N_MAIN rows, where the age records are taken), at N = 128, K3/K4 at
-    N = 8192; then at the NYUD2 shape. Returns the age and depth records."""
+    N = 8192; then at the NYUD2 shape; then K1, K2 and K3 at the STS-B
+    shape. Returns the age, depth and STS-B records."""
     gen = torch.Generator(device=dev).manual_seed(0)
     d, b = AGE
     age = {}
@@ -424,7 +471,14 @@ def kernel_phase(ck, cal, dev) -> tuple[dict, dict]:
                             record=True, iters=10)
     depth.update(check_depth_moments(ck, gen, dev))
     log_records(depth)
-    return age, depth
+    sts = check_calibrate(ck, cal, gen, dev, STS_BATCH, *STS, [("positive", (0.5, 2.0))],
+                          record=True, sts=True)
+    sts.update(check_moments(ck, gen, dev, STS_BATCH, *STS, record=True,
+                             names=("segment_moments",), empty_bucket=True))
+    assert ck.moments_plan(STS_BATCH, STS[0], torch.cuda.get_device_properties(0)
+                           .multi_processor_count).kernel == "short"
+    log_records(sts)
+    return age, depth, sts
 
 
 def main_path_phase(ck) -> dict:
@@ -835,23 +889,139 @@ def depth_resume_phase(ck) -> dict:
     return add_counts(add_counts(full_launches, killed), resumed_launches)
 
 
-def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int) -> None:
+def write_sts_corpus(root: str = STS_DIR, seed: int = 0) -> None:
+    """A synthetic corpus in the GLUE STS-B layout (10 tab-separated
+    columns, sentence 1, sentence 2 and score at 7, 8, 9, one header row)
+    at ``STS_SPLITS``' sizes, and a 300-d GloVe-format text file of random
+    vectors for 90% of the words, all from ``seed``. Sentences are 5-30
+    made-up words drawn by a Zipf law over ``STS_VOCAB`` words, with commas
+    and a final period (the longest pass 40 tokens); sentence 2 keeps a
+    share score / 5 of sentence 1's words. Scores are 5 * Beta(2, 5): the
+    top buckets stay empty, and so does [2.5, 2.6), whose scores move up."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    consonants, vowels = "bcdfghjklmnprstvz", "aeiou"
+    words = set()
+    while len(words) < STS_VOCAB:
+        syllables = rng.integers(2, 5)
+        words.add("".join(rng.choice(list(consonants)) + rng.choice(list(vowels))
+                          for _ in range(syllables)))
+    words = list(rng.permutation(sorted(words)))
+    zipf = 1.0 / np.arange(1, STS_VOCAB + 1) ** 1.1
+    zipf /= zipf.sum()
+
+    def sentence(ids) -> str:
+        toks = [words[i] + ("," if rng.random() < 0.25 else "") for i in ids]
+        return " ".join(toks) + "."
+
+    os.makedirs(root, exist_ok=True)
+    for fname, n in STS_SPLITS:
+        scores = np.round(5.0 * rng.beta(2.0, 5.0, n), 3)
+        scores[(scores >= 2.5) & (scores < 2.6)] += 0.1
+        rows = ["\t".join(["index", "genre", "filename", "year", "old_index", "source1",
+                           "source2", "sentence1", "sentence2", "score"])]
+        for i, score in enumerate(scores):
+            s1 = rng.choice(STS_VOCAB, rng.integers(5, 31), p=zipf)
+            keep = rng.random(len(s1)) < score / 5.0
+            s2 = np.where(keep, s1, rng.choice(STS_VOCAB, len(s1), p=zipf))
+            s2 = s2[: max(5, len(s2) - rng.integers(0, 4))]
+            rows.append("\t".join(["x"] * 7 + [sentence(s1), sentence(s2), f"{score:.3f}"]))
+        with open(os.path.join(root, fname), "w", encoding="utf-8") as fh:
+            fh.write("\n".join(rows) + "\n")
+    vectors = rng.normal(0.0, 0.5, size=(STS_VOCAB, 300)).astype(np.float32)
+    with open(os.path.join(root, "glove.txt"), "w", encoding="utf-8") as fh:
+        for i, (word, vec) in enumerate(zip(words, vectors)):
+            if i % 10:
+                fh.write(word + " " + " ".join(f"{v:.5f}" for v in vec) + "\n")
+
+
+def sts_path_phase(ck, argv: list) -> tuple[dict, dict]:
+    """Phase 11: the STS-B train path at full width. Returns its launches and
+    result."""
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    t0 = time.time()
+    ck.reset_launch_counts()
+    result = stsb.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    log(f"STS-B path: {time.time() - t0:.1f}s, {result['iterations']} iterations, kernel "
+        f"launches {launches}, K3 by kernel {dict(ck.segment_moments.kernels)}")
+    for c in result["checks"]:
+        log(f"val check {c['val_check']} (iter {c['iter']}, epoch {c['epoch']}): train_loss "
+            f"{c['train_loss']:.5f} val_mse {c['val_mse']:.5f}, {c['pairs_per_sec']:.1f} pairs/s "
+            f"(train {c['train_seconds']:.3f}s)")
+    log(f"STS-B stats passes: {result['stats_pass_seconds']} s; test overall "
+        f"{result['test']['overall']}")
+    assert all(math.isfinite(c["train_loss"]) and math.isfinite(c["val_mse"])
+               for c in result["checks"]), result["checks"]
+    assert all(math.isfinite(v) for v in result["test"]["overall"].values()), result["test"]
+    for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+        assert launches[name] > 0, f"{name} was not launched on the STS-B path"
+    assert launches["segment_moments_v2"] == 0, launches
+    assert ck.segment_moments.kernels == {"short": launches["segment_moments"]}, \
+        ck.segment_moments.kernels
+    fds = result["final_fds"]
+    assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any(), \
+        "the last epoch calibrated with fds_init stats"
+    return launches, result
+
+
+def sts_resume_phase(ck, full: dict, full_store: str) -> dict:
+    """Phase 12: the phase-11 run killed right after validation check 1's
+    checkpoint (which holds the validation history) and resumed; then
+    ``--evaluate --resume`` on its store. Returns the launches of the
+    three runs."""
+    from imbalanced_regression_tpu_torch.tasks import stsb
+    from imbalanced_regression_tpu_torch.utils.checkpoint import checkpoint_path
+
+    argv = with_root(STS_ARGV, f"{RESUME_ROOT}/sts_resumed")
+    store = store_of(stsb.parse_sts_config(argv))
+    t0 = time.time()
+    resumed, killed, resumed_launches = killed_and_resumed(ck, stsb, argv, store, kill_at=1)
+    ck.reset_launch_counts()
+    evaluated = stsb.main(argv + ["--evaluate", "--resume", store])
+    torch.cuda.synchronize()
+    eval_launches = launch_counts(ck)
+    diffs = resumed_equal(full, resumed, ("test", "best_val_mse", "iterations", "val_history"),
+                          full_store, store)
+    log(f"STS-B resume: {time.time() - t0:.1f}s for the three runs; uninterrupted val history "
+        f"{full['val_history']}, resumed {resumed['val_history']}; bit-equal: {not diffs}"
+        + (f" (differs: {diffs[:8]})" if diffs else ""))
+    log(f"  launches: killed {killed}, resumed {resumed_launches}, evaluate {eval_launches}")
+    log(f"STS-B checkpoint: {os.path.getsize(checkpoint_path(store, 'latest'))} bytes on disk")
+    assert not diffs, f"the resumed STS-B run differs from the uninterrupted one: {diffs[:8]}"
+    for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+        assert resumed_launches[name] > 0, f"{name} was not launched on the resumed STS-B run"
+    diffs = payload_diffs(resumed["test"], evaluated["test"])
+    log(f"--evaluate of the resumed store: equal to its final test: {not diffs}")
+    assert not diffs, diffs
+    shutil.rmtree(RESUME_ROOT)
+    return add_counts(add_counts(killed, resumed_launches), eval_launches)
+
+
+def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
+                   indexed: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
     ``steps_in`` under ``torch.profiler``, after the others as warm-up.
     Prints the step time, the device's busy share and the kernels that take
     the most device time, and writes the timeline to
-    ``runs/chip_smoke/trace_<name>.json``."""
+    ``runs/chip_smoke/trace_<name>.json``. ``indexed``: ``steps_in`` are
+    index batches for ``train_step_indexed`` (STS-B pairs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    images = len(steps_in[0]["target"])
+    step = trainer.train_step_indexed if indexed else trainer.train_step
+    images = len(steps_in[0]) if indexed else len(steps_in[0]["target"])
+    unit = "pairs/s" if indexed else "img/s"
     for b in steps_in[:-steps]:
-        trainer.train_step(state, b, epoch)
+        step(state, b, epoch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for b in steps_in[-steps:]:
-            trainer.train_step(state, b, epoch)
+            step(state, b, epoch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device activity only (kernels and copies), grouped by name
@@ -863,7 +1033,7 @@ def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps:
             by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
     device_ms = sum(sum(v) for v in by_name.values()) / steps
     log(f"profile {name}: {wall_ms:.2f} ms/step on the host clock ({images * 1e3 / wall_ms:.1f} "
-        f"img/s), device busy {device_ms:.2f} ms/step ({100 * device_ms / wall_ms:.1f}%), "
+        f"{unit}), device busy {device_ms:.2f} ms/step ({100 * device_ms / wall_ms:.1f}%), "
         f"{sum(len(v) for v in by_name.values()) // steps} device activities/step")
     top = sorted(by_name.items(), key=lambda kv: sum(kv[1]), reverse=True)
     for kernel, times in top[:15]:
@@ -880,7 +1050,8 @@ def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps:
 def profile_phase(steps: int = 5) -> None:
     """Profiled windows of ``steps`` train steps with calibration on (epoch
     2, after two stats passes), after three warm-up steps: the age path's
-    trainer (batch 64, 224x224) and the depth path's (batch 32, 228x304)."""
+    trainer (batch 64, 224x224), the depth path's (batch 32, 228x304) and
+    the STS-B path's (batch 128, indexed, on the phase-11 corpus)."""
     import numpy as np
 
     from imbalanced_regression_tpu_torch.data.batching import batch_iterator
@@ -905,6 +1076,22 @@ def profile_phase(steps: int = 5) -> None:
         state = trainer.fds_epoch_pass(
             state, batch_iterator(fds_subset, DEPTH_BATCH, shuffle=False), epoch)
     profile_window("depth", trainer, state, (batches(2) + batches(3))[: 3 + steps], 2, steps)
+    del trainer, state
+
+    from imbalanced_regression_tpu_torch.data.batching import index_iterator
+    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    scfg = stsb.parse_sts_config(STS_ARGV)
+    train, _, _, emb, vocab = load_stsb_datasets(scfg.data_dir, scfg)
+    trainer = stsb.build_sts_trainer(scfg, len(vocab), emb)
+    state = trainer.init_state(0)
+    trainer.bind_device_data(train)
+    n = len(train["target"])
+    batches = lambda k: list(index_iterator(n, STS_BATCH, rng=np.random.default_rng(k)))  # noqa: E731
+    for epoch in (0, 1):
+        state = trainer.fds_epoch_pass_indexed(state, batches(epoch)[:2], epoch)
+    profile_window("sts", trainer, state, batches(2)[: 3 + steps], 2, steps, indexed=True)
 
 
 def main(argv=None) -> int:
@@ -922,6 +1109,7 @@ def main(argv=None) -> int:
 
     from imbalanced_regression_tpu_torch.ops import calibrate as cal
     from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
+    from imbalanced_regression_tpu_torch.tasks.stsb import parse_sts_config
     from imbalanced_regression_tpu_torch.train import set_numerics
 
     set_numerics()
@@ -934,7 +1122,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     floor = graph_floor_ms(dev)
-    age_records, depth_records = kernel_phase(ck, cal, dev)
+    age_records, depth_records, sts_records = kernel_phase(ck, cal, dev)
     age_launches = main_path_phase(ck)
     depth_launches, depth_result = depth_path_phase(ck)
     stats_launches, stats_records = depth_stats_phase(ck, depth_result)
@@ -946,15 +1134,27 @@ def main(argv=None) -> int:
     resume_launches, stage1 = age_resume_phase(ck)
     rrt_launches = rrt_phase(ck, stage1)
     depth_resume_launches = depth_resume_phase(ck)
+    t0 = time.time()
+    write_sts_corpus()
+    log(f"STS-B corpus and GloVe file written: {time.time() - t0:.1f}s")
+    sts_argv = with_root(STS_ARGV, f"{RESUME_ROOT}/sts_full")
+    sts_launches, sts_result = sts_path_phase(ck, sts_argv)
+    del sts_result["trainer"], sts_result["state"]
+    sts_resume_launches = sts_resume_phase(
+        ck, sts_result, store_of(parse_sts_config(sts_argv)))
+    del sts_result
     if args.profile:
         profile_phase()
+    shutil.rmtree(STS_DIR)
 
     # launches by phase: the age shape's records count phases 4, 8 and 9,
-    # the depth shape's phases 5, 6 (K4) and 10
+    # the depth shape's phases 5, 6 (K4) and 10, the STS-B shape's 11 and 12
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches}
     depth_phases = {"5": depth_launches, "6": stats_launches, "10": depth_resume_launches}
+    sts_phases = {"11": sts_launches, "12": sts_resume_launches}
     kernels = []
-    for records, phases in ((age_records, age_phases), (depth_records, depth_phases)):
+    for records, phases in ((age_records, age_phases), (depth_records, depth_phases),
+                            (sts_records, sts_phases)):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
             by_phase = {p: n[name] for p, n in phases.items()}

@@ -9,13 +9,15 @@ it is held against:
               (``ops/cuda_kernels.py``, sources in ``csrc/``).
 - ``fds``     Feature Distribution Smoothing state and transitions.
 - ``models``  the ResNet family (18/34/50/101/152, with remat) and the
-              regression head; the NYUD2 depth encoder-decoder and head.
-- ``data``    on-device augmentation, synthetic data, batching, the NYUD2
-              pipeline.
+              regression head; the NYUD2 depth encoder-decoder and head;
+              the STS-B GloVe + BiLSTM pair encoder.
+- ``data``    on-device augmentation, synthetic data, batching (nested
+              batches, endless streams), the NYUD2 and STS-B pipelines.
 - ``utils``   shot and depth metrics, config, metrics logging,
               checkpoints, meters.
-- ``train``   the trainer: Adam or SGD, clipping, RRT, mid-epoch resume.
-- ``tasks``   the age-regression and NYUD2 depth drivers.
+- ``train``   the trainer: Adam or SGD, clipping, RRT, mid-epoch resume,
+              indexed steps over device-resident data.
+- ``tasks``   the age-regression, NYUD2 depth and STS-B drivers.
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.
 """

@@ -27,6 +27,10 @@ two R-trunk convs); inside an ``UpProjection``, ``Conv_0..2``/
 ``BatchNorm_0..2`` in the order conv1, conv1_2, conv2. Its head is
 ``Conv_0`` with a bias.
 
+The STS-B pair encoder (:func:`stsb_from_flax`) maps ``embed.embedding``,
+``highway/Dense_{i}``, ``bilstm/input_proj_{l}`` and
+``bilstm/recurrent_kernel_{l}`` onto the same names.
+
 :func:`from_torchvision_resnet` takes a torchvision-format ResNet state dict
 (the ImageNet weights the NYUD2 reference loads into its encoder); the
 port's ResNets use torchvision's names, so it only filters and checks them.
@@ -121,6 +125,37 @@ def depth_from_flax(variables_np: dict | None, head_params_np: dict | None = Non
     if head_params_np is not None:
         conv = head_params_np["Conv_0"]
         out["head"] = {"conv.weight": _conv(conv), "conv.bias": _t(conv["bias"])}
+    return out
+
+
+def stsb_from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> dict:
+    """Convert a Flax ``PairBiLSTMEncoder`` variables tree (``{"params":
+    {"embed", "highway", "bilstm"}}``, the fused BiLSTM layout) and the
+    ``RegressionHead`` params into ``{"backbone": state_dict, "head":
+    state_dict}`` for :class:`models.bilstm_pair.PairBiLSTMEncoder` and
+    :class:`models.resnet.RegressionHead`; either input may be None. The
+    recurrent kernels keep Flax's [H, 4H] layout (the port computes ``h @
+    W``)."""
+    out = {}
+    if variables_np is not None:
+        params = variables_np["params"]
+        sd = {"embed.weight": _t(params["embed"]["embedding"])}
+        for name, dense in params.get("highway", {}).items():  # Dense_{i}
+            i = int(name.removeprefix("Dense_"))
+            sd[f"highway.layers.{i}.weight"] = _t(np.asarray(dense["kernel"]).T)
+            sd[f"highway.layers.{i}.bias"] = _t(dense["bias"])
+        for name, p in params["bilstm"].items():
+            if name.startswith("input_proj_"):
+                sd[f"bilstm.{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+                sd[f"bilstm.{name}.bias"] = _t(p["bias"])
+            elif name.startswith("recurrent_kernel_"):
+                sd[f"bilstm.{name}"] = _t(p)
+            else:
+                raise KeyError(f"not a fused BiLSTM parameter: {name!r} (the 'flax' "
+                               "per-direction layout is not ported)")
+        out["backbone"] = sd
+    if head_params_np is not None:
+        out["head"] = from_flax(None, head_params_np)["head"]
     return out
 
 

@@ -3,22 +3,38 @@
 Training shuffles and drops the remainder batch, so every train step sees
 the same batch shape (as in the JAX package, where a new shape would
 recompile the step); evaluation pads the final batch and carries a
-``count`` so metrics ignore the padding. Batches are flat dicts of numpy
-arrays, indexed along their leading axis."""
+``count`` so metrics ignore the padding. Batch dicts may be nested (STS-B's
+``input`` holds the token and mask arrays of both sentences): every leaf is
+indexed along its leading axis, as the JAX package's ``jax.tree.map``
+does."""
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
 
+def tree_map(fn: Callable, data):
+    """``fn`` applied to every leaf of a nested dict, in a dict of the same
+    structure."""
+    if isinstance(data, dict):
+        return {k: tree_map(fn, v) for k, v in data.items()}
+    return fn(data)
+
+
+def _first_leaf(data):
+    while isinstance(data, dict):
+        data = next(iter(data.values()))
+    return data
+
+
 def _num_examples(data: dict) -> int:
-    return len(next(iter(data.values())))
+    return len(_first_leaf(data))
 
 
 def _take(data: dict, sel) -> dict:
-    return {k: v[sel] for k, v in data.items()}
+    return tree_map(lambda v: v[sel], data)
 
 
 def index_iterator(
@@ -48,10 +64,43 @@ def batch_iterator(
     rng: np.random.Generator | None = None,
     drop_last: bool = True,
 ) -> Iterator[dict]:
-    """Yield dict batches from a dict of equal-length arrays."""
+    """Yield dict batches from a (possibly nested) dict of equal-length arrays."""
     n = _num_examples(data)
     for idx in index_iterator(n, batch_size, shuffle=shuffle, rng=rng, drop_last=drop_last):
         yield _take(data, idx)
+
+
+def infinite_index_batches(
+    n: int, batch_size: int, seed: int, start_batches: int = 0
+) -> Iterator[tuple[np.ndarray, int]]:
+    """Endless reshuffled epochs of index batches; yields (idx, epoch).
+
+    Epoch ``e`` shuffles with ``np.random.default_rng((seed, e))`` and drops
+    the remainder, so a stream restarted with ``start_batches=k`` yields
+    what the uninterrupted one yields from batch k on. For ``n <
+    batch_size`` each epoch is one short batch of all ``n`` rows (dropping
+    the remainder would leave none)."""
+    drop_last = n >= batch_size
+    n_batches = max(n // batch_size, 1)
+    epoch, skip = divmod(start_batches, n_batches)
+    while True:
+        rng = np.random.default_rng((seed, epoch))
+        for i, idx in enumerate(index_iterator(n, batch_size, rng=rng, drop_last=drop_last)):
+            if i >= skip:
+                yield idx, epoch
+        skip = 0
+        epoch += 1
+
+
+def infinite_batches(
+    data: dict, batch_size: int, seed: int, start_batches: int = 0
+) -> Iterator[tuple[dict, int]]:
+    """:func:`infinite_index_batches` with the rows gathered from ``data``
+    (the STS-B trainer's endless generator, ``sts-b-dir/trainer.py:83``);
+    yields (batch, epoch)."""
+    n = _num_examples(data)
+    for idx, epoch in infinite_index_batches(n, batch_size, seed, start_batches):
+        yield _take(data, idx), epoch
 
 
 def eval_batches(data: dict, batch_size: int) -> Iterator[dict]:
@@ -64,6 +113,6 @@ def eval_batches(data: dict, batch_size: int) -> Iterator[dict]:
         count = stop - start
         if count < batch_size:
             pad = batch_size - count
-            batch = {k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)]) for k, v in batch.items()}
+            batch = tree_map(lambda v: np.concatenate([v, np.repeat(v[:1], pad, axis=0)]), batch)
         batch["count"] = count
         yield batch

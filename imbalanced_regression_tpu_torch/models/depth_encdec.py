@@ -146,7 +146,8 @@ class DepthEncoderDecoder(nn.Module):
             elif isinstance(mod, BatchNorm):
                 mod.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        # ``generator``: unused (no dropout); the Trainer passes it to every backbone
         b1, b2, b3, b4 = self.encoder(x)
         autocast = (torch.autocast(device_type=b1.device.type, dtype=self.dtype)
                     if self.dtype != torch.float32 else contextlib.nullcontext())

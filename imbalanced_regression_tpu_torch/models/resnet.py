@@ -122,6 +122,21 @@ def _he_normal_fan_out(w: torch.Tensor, generator: torch.Generator | None) -> No
         w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
 
 
+def dense_reset_(linear: nn.Linear, generator: torch.Generator | None) -> None:
+    """Flax ``nn.Dense`` default: lecun-normal kernel (truncated normal at
+    two standard deviations, rescaled to unit variance) and zero bias."""
+    fan_in = linear.weight.shape[1]
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        w = torch.empty_like(linear.weight)
+        # rejection-free truncation: inverse CDF of a uniform draw
+        u = torch.empty_like(w).uniform_(generator=generator)
+        lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+        w = torch.erfinv(lo + u * (hi - lo)) * math.sqrt(2.0) * std
+        linear.weight.copy_(w)
+        linear.bias.zero_()
+
+
 _CONV_OPS = (torch.ops.aten.convolution.default,)
 
 
@@ -247,7 +262,8 @@ class ResNetBackbone(nn.Module):
             elif isinstance(m, BatchNorm):
                 m.reset_parameters()
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        # ``generator``: unused (no dropout); the Trainer passes it to every backbone
         x = x.permute(0, 3, 1, 2)  # NHWC → NCHW view in channels_last layout
         autocast = (torch.autocast(device_type=x.device.type, dtype=self.dtype)
                     if self.dtype != torch.float32 else contextlib.nullcontext())
@@ -282,18 +298,7 @@ class RegressionHead(nn.Module):
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        """Flax ``nn.Dense`` default: lecun-normal kernel (truncated normal at
-        two standard deviations, rescaled to unit variance) and zero bias."""
-        fan_in = self.linear.weight.shape[1]
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-        with torch.no_grad():
-            w = torch.empty_like(self.linear.weight)
-            # rejection-free truncation: inverse CDF of a uniform draw
-            u = torch.empty_like(w).uniform_(generator=generator)
-            lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-            w = torch.erfinv(lo + u * (hi - lo)) * math.sqrt(2.0) * std
-            self.linear.weight.copy_(w)
-            self.linear.bias.zero_()
+        dense_reset_(self.linear, generator)
 
     def forward(self, encoding: torch.Tensor, generator: torch.Generator | None = None):
         if self.dropout and self.training:

@@ -40,11 +40,19 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   the device generator rides in the checkpoint, so a resumed epoch draws
   the uninterrupted run's augmentation.
 
+- **Indexed mode** (STS-B): ``bind_device_data`` puts a whole (small)
+  train split on the device once; ``train_step_indexed`` and
+  ``fds_epoch_pass_indexed`` gather each batch there from one index
+  vector, and are ``train_step`` / ``fds_epoch_pass`` on the gathered rows.
+- **Dropout**: the backbone gets the state's generator in the step and the
+  pass's generator in the stats pass, where it stays in train mode (the
+  STS-B encoder's dropout stays live there, ``sts-b-dir/trainer.py:158-166``);
+  the ResNet and depth backbones ignore it.
+
+Batches may be nested dicts (STS-B's ``input`` holds four arrays).
+
 The state is mutable: a step updates the modules, the optimizer and the
 generator in place and returns the same :class:`TrainState`.
-
-Not ported yet: the device-resident indexed mode (``bind_device_data``),
-which only STS-B uses.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from imbalanced_regression_tpu_torch.data.batching import tree_map
 from imbalanced_regression_tpu_torch.fds import (
     FDSConfig,
     FDSState,
@@ -162,13 +171,17 @@ class Trainer:
         if config.optimizer not in ("adam", "sgd"):
             raise ValueError(f"optimizer must be 'adam' or 'sgd', got {config.optimizer!r}")
         self._loss_fn = config.loss_fn()
+        self._bound_data: dict | None = None
 
     # ------------------------------------------------------------------ setup
     def init_state(self, seed: int = 0) -> TrainState:
         """Initialize the weights from ``seed`` (on the CPU, so the draw does
         not depend on the device), move the modules to the device and build
         the optimizer and the FDS state. Under ``retrain_fc`` the backbone is
-        frozen and the optimizer holds the head's parameters only."""
+        frozen and the optimizer holds the head's parameters only; a
+        parameter the backbone keeps frozen itself (the STS-B encoder's word
+        embeddings) is left out of it too. ``channels_last`` applies to the
+        4-d (convolution) parameters only."""
         cfg = self.config
         init_gen = torch.Generator().manual_seed(seed)
         self.backbone.reset_parameters(init_gen)
@@ -178,7 +191,7 @@ class Trainer:
         backbone.requires_grad_(not cfg.retrain_fc)
         params = list(head.parameters())
         if not cfg.retrain_fc:
-            params = list(backbone.parameters()) + params
+            params = [p for p in backbone.parameters() if p.requires_grad] + params
         if cfg.optimizer == "sgd":
             optimizer = torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
                                         weight_decay=cfg.weight_decay, dampening=0.0)
@@ -190,24 +203,43 @@ class Trainer:
                           generator=generator)
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if k != "count"}
+        return tree_map(lambda v: torch.as_tensor(v).to(self.device, non_blocking=True),
+                        {k: v for k, v in batch.items() if k != "count"})
+
+    # ---------------------------------------------------- device-resident data
+    def bind_device_data(self, data: dict) -> None:
+        """Put a (small) dataset on the device once, for
+        :meth:`train_step_indexed` and :meth:`fds_epoch_pass_indexed` to
+        gather their batches from (the STS-B-DIR train split is ~2 MB)."""
+        self._bound_data = self._to_device(data)
+
+    def _gather(self, idx) -> dict:
+        assert self._bound_data is not None, "call bind_device_data first"
+        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device, non_blocking=True)
+        return tree_map(lambda a: a.index_select(0, idx), self._bound_data)
 
     # ------------------------------------------------------------------ steps
     def train_step(self, state: TrainState, batch: dict, epoch: int):
         """One optimization step. Returns (state, loss, predictions); loss
         and predictions stay on the device (no host sync)."""
+        return self._step(state, self._to_device(batch), epoch)
+
+    def train_step_indexed(self, state: TrainState, idx, epoch: int):
+        """:meth:`train_step` on rows ``idx`` of the :meth:`bind_device_data`
+        data, gathered on the device."""
+        return self._step(state, self._gather(idx), epoch)
+
+    def _step(self, state: TrainState, b: dict, epoch: int):
         # per-epoch MultiStep lr (utils.py:81-86): lr * 0.1 per passed milestone
         lr = self.config.lr * 0.1 ** sum(epoch >= m for m in self.config.schedule)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
-        b = self._to_device(batch)
         state.backbone.train()
         state.head.train()
         x = b["input"]
         if self.train_augment is not None:
             x = self.train_augment(x, state.generator)
-        encoding = state.backbone(x)
+        encoding = state.backbone(x, generator=state.generator)
         if self.fds_config is not None:
             encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
                                   bucket_idx=b.get("bucket_idx"))
@@ -259,25 +291,32 @@ class Trainer:
         counts = np.asarray(counts)
         return state, float((losses * counts).sum() / counts.sum())
 
-    @torch.no_grad()
     def fds_epoch_pass(self, state: TrainState, batches: Iterable[dict], epoch: int) -> TrainState:
         """Epoch-end FDS stats pass (streaming moments), preserving the
         reference's snapshot-then-update ordering."""
+        return self._fds_pass(state, (self._to_device(b) for b in batches), epoch)
+
+    def fds_epoch_pass_indexed(self, state: TrainState, idx_batches: Iterable, epoch: int) -> TrainState:
+        """:meth:`fds_epoch_pass` over index batches of the
+        :meth:`bind_device_data` data."""
+        return self._fds_pass(state, (self._gather(idx) for idx in idx_batches), epoch)
+
+    @torch.no_grad()
+    def _fds_pass(self, state: TrainState, device_batches: Iterable[dict], epoch: int) -> TrainState:
         cfg = self.fds_config
         if cfg is None or epoch < cfg.start_update:
             return state
         moments = fds_zero_moments(cfg, self.device)
         generator = torch.Generator(device=self.device).manual_seed(epoch)
-        # train-mode backbone (BN batch stats update, like the reference's
-        # model.train() + no_grad stats pass), pre-smooth encodings, over the
-        # augmented train loader (imdb-wiki-dir/train.py:273)
+        # train-mode backbone (BN batch stats update and live dropout, like
+        # the reference's model.train() + no_grad stats pass), pre-smooth
+        # encodings, over the augmented train loader (imdb-wiki-dir/train.py:273)
         state.backbone.train()
-        for batch in batches:
-            b = self._to_device(batch)
+        for b in device_batches:
             x = b["input"]
             if self.train_augment is not None:
                 x = self.train_augment(x, generator)
-            encoding = state.backbone(x)
+            encoding = state.backbone(x, generator=generator)
             moments = moments + fds_bucket_moments(cfg, encoding, b["target"], b.get("bucket_idx"))
         fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
         state.fds = fds_apply_moments(cfg, fds, moments, epoch)

@@ -12,20 +12,24 @@ file, ``<ckpt_dir>/latest.pt`` or ``<ckpt_dir>/best.pt``, holding:
   None;
 - ``step`` and ``generator`` (the device generator's ``get_state()``), so a
   resumed run draws the augmentation and dropout of the uninterrupted one;
-- ``meta``: ``{"epoch", "best_loss"}``.
+- ``meta``: ``{"epoch", "best_loss"}``, and ``"metric_state"`` (the STS
+  driver's validation history) when the caller gives one: written in the
+  same file as the state it belongs to, so no crash can leave the two out
+  of step (the JAX package writes its ``metric_state`` file after the
+  checkpoint, and a crash between the two writes resumes with the history
+  one check short).
 
 Each write goes to a temporary file first and is moved into place with
 ``os.replace``, so a run killed during a save keeps the previous file whole.
 Replaces the reference's ``torch.save({'epoch', 'model', 'best_loss',
 'state_dict', 'optimizer'})`` + best-copy flow (``imdb-wiki-dir/utils.py:89-94``,
 ``train.py:185-196,209-215``). Also provides the RRT backbone-only load
-(``train.py:174-183``) and the STS metric-history files.
+(``train.py:174-183``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import shutil
 
@@ -55,8 +59,10 @@ def _device(state) -> torch.device:
     return next(state.head.parameters()).device
 
 
-def save_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best: bool) -> None:
-    """Save the ``latest`` (and, if ``is_best``, the ``best``) checkpoint."""
+def save_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best: bool,
+                    metric_state: dict | None = None) -> None:
+    """Save the ``latest`` (and, if ``is_best``, the ``best``) checkpoint,
+    with ``metric_state`` in its ``meta`` when given."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "backbone": state.backbone.state_dict(),
@@ -67,6 +73,8 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best:
         "generator": state.generator.get_state(),
         "meta": {"epoch": int(epoch), "best_loss": float(best_loss)},
     }
+    if metric_state is not None:
+        payload["meta"]["metric_state"] = metric_state
     latest = checkpoint_path(ckpt_dir, "latest")
     torch.save(payload, latest + ".tmp")
     if is_best:
@@ -79,6 +87,13 @@ def save_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best:
 def read_checkpoint(ckpt_dir: str, which: str = "latest") -> dict:
     """The raw payload of a checkpoint, on the CPU."""
     return torch.load(checkpoint_path(ckpt_dir, which), map_location="cpu", weights_only=True)
+
+
+def checkpoint_meta(ckpt_dir: str, which: str = "latest") -> dict:
+    """The ``meta`` entry of a checkpoint; the file is memory-mapped, so its
+    tensors are not read."""
+    return torch.load(checkpoint_path(ckpt_dir, which), map_location="cpu", weights_only=True,
+                      mmap=True)["meta"]
 
 
 def restore_checkpoint(ckpt_dir: str, state, which: str = "latest"):
@@ -113,34 +128,6 @@ def load_backbone_params(ckpt_dir: str, state, which: str = "best", restore_fds:
     if restore_fds and state.fds is not None and payload["fds"] is not None:
         state.fds = _fds_from_dict(payload["fds"], _device(state))
     return state
-
-
-def save_metric_state(ckpt_dir: str, history, best: float, is_best: bool) -> None:
-    """Persist the validation-metric history beside the state checkpoint.
-
-    The reference stores the per-metric history in ``metric_state.th``
-    (``sts-b-dir/trainer.py:357-363``) and restores it on resume
-    (``trainer.py:398-402``), so patience decisions after a resume are those
-    of an uninterrupted run. Writes are tmp + rename."""
-    ckpt_dir = os.path.abspath(ckpt_dir)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"hist": [float(h) for h in history], "best": float(best)}
-    names = ["metric_state.json"] + (["metric_state_best.json"] if is_best else [])
-    for name in names:
-        tmp = os.path.join(ckpt_dir, name + ".tmp")
-        with open(tmp, "w") as fh:
-            json.dump(payload, fh)
-        os.replace(tmp, os.path.join(ckpt_dir, name))
-
-
-def load_metric_state(ckpt_dir: str, which: str = "latest") -> dict | None:
-    """``{'hist': [...], 'best': float}``, or None if never saved."""
-    name = "metric_state.json" if which == "latest" else "metric_state_best.json"
-    path = os.path.join(os.path.abspath(ckpt_dir), name)
-    if not os.path.isfile(path):
-        return None
-    with open(path) as fh:
-        return json.load(fh)
 
 
 def state_byte_size(state) -> int:

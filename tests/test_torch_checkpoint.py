@@ -190,12 +190,34 @@ def test_killed_save_keeps_previous_checkpoint(tmp_path, monkeypatch):
         assert ckpt.read_checkpoint(str(tmp_path), which)["meta"] == {"epoch": 1, "best_loss": 2.0}
 
 
-def test_metric_state_roundtrip(tmp_path):
-    assert ckpt.load_metric_state(str(tmp_path)) is None
-    ckpt.save_metric_state(str(tmp_path), [0.5, 0.25], 0.25, is_best=True)
-    ckpt.save_metric_state(str(tmp_path), [0.5, 0.25, 0.75], 0.25, is_best=False)
-    assert ckpt.load_metric_state(str(tmp_path)) == {"hist": [0.5, 0.25, 0.75], "best": 0.25}
-    assert ckpt.load_metric_state(str(tmp_path), "best") == {"hist": [0.5, 0.25], "best": 0.25}
+def test_metric_state_roundtrip(tmp_path, monkeypatch):
+    """The STS validation history rides in the checkpoint's meta: ``best``
+    keeps the history of its own save, and a save that dies leaves the
+    previous file, history included (no separate file to fall out of step
+    with the state)."""
+    state = _trainer(fds=False).init_state(0)
+    ckpt.save_checkpoint(str(tmp_path), state, 1, 0.25, True, metric_state={"hist": [0.5, 0.25],
+                                                                              "best": 0.25})
+    ckpt.save_checkpoint(str(tmp_path), state, 1, 0.25, False,
+                         metric_state={"hist": [0.5, 0.25, 0.75], "best": 0.25})
+    assert ckpt.checkpoint_meta(str(tmp_path))["metric_state"] == {"hist": [0.5, 0.25, 0.75],
+                                                                    "best": 0.25}
+    assert ckpt.checkpoint_meta(str(tmp_path), "best")["metric_state"] == {"hist": [0.5, 0.25],
+                                                                            "best": 0.25}
+
+    def dying_save(obj, path):
+        with open(path, "wb") as fh:
+            fh.write(b"half a checkpoint")
+        raise KeyboardInterrupt("killed during the save")
+
+    monkeypatch.setattr(ckpt.torch, "save", dying_save)
+    with pytest.raises(KeyboardInterrupt):
+        ckpt.save_checkpoint(str(tmp_path), state, 2, 0.1, True,
+                             metric_state={"hist": [0.5, 0.25, 0.75, 0.1], "best": 0.1})
+    monkeypatch.undo()
+    assert ckpt.checkpoint_meta(str(tmp_path))["metric_state"]["hist"] == [0.5, 0.25, 0.75]
+    ckpt.save_checkpoint(str(tmp_path), state, 3, 0.1, False)
+    assert "metric_state" not in ckpt.checkpoint_meta(str(tmp_path))
 
 
 def test_meters_match_jax(caplog):

@@ -269,3 +269,85 @@ def test_moments_v2_rejects_bad_inputs(cuda_device):
         ck.segment_moments_v2(feats.to(torch.bfloat16), idx, 8)
     with pytest.raises(ValueError, match="buckets"):
         ck.segment_moments_v2(feats, idx, ck.V2_MAX_BUCKETS + 1)
+
+
+# ---------------------------------------------------------------- STS-B shape
+STS_N, STS_D, STS_B = 128, 12000, 50  # batch 128, the 12000-d pair embedding, 50 buckets
+
+
+@pytest.mark.cuda
+def test_kernels_at_sts_shape(cuda_device):
+    """K1 and K2 bit-equal to their plain versions and K3 within 1e-5 at the
+    STS-B shape (12000 = 93 x 128 + 96: the last column tile is partial),
+    with an empty bucket and rows of a bucket whose v1 sums to under 1e-10."""
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(a).to(cuda_device)  # noqa: E731
+    x = rng.normal(size=(STS_N, STS_D)).astype(np.float32)
+    e = rng.integers(0, STS_B - 1, size=STS_N).astype(np.int32)  # bucket 49 stays empty
+    e[:4] = 3
+    ok = rng.random(STS_N) > 0.1
+    m1, m2 = rng.normal(size=(2, STS_B, STS_D)).astype(np.float32)
+    v1, v2 = rng.uniform(0.01, 3.0, size=(2, STS_B, STS_D)).astype(np.float32)
+    v1[3] = 1e-15  # v1sum 1.2e-11: those rows pass through
+    v2[5, :7] = -1.0
+    x, e, ok, m1, v1, m2, v2 = map(t, (x, e, ok, m1, v1, m2, v2))
+    args = (x, e, ok, m1, v1, m2, v2, v1.sum(1), 0.5, 2.0, "positive")
+    out = ck.calibrate_forward(*args)
+    assert torch.equal(out, calibrate_indexed(*args))
+    assert torch.equal(out[:4], x[:4])
+    g = torch.randn(STS_N, STS_D, device=cuda_device)
+    bargs = (g, e, ok, v1, v2, v1.sum(1), 0.5, 2.0, "positive")
+    assert torch.equal(ck.calibrate_backward(*bargs), calibrate_indexed_grad(*bargs))
+    ck.reset_launch_counts()
+    c, s, q = ck.segment_moments(x, e, STS_B)
+    assert ck.segment_moments.kernels == {"short": 1}
+    pc, ps, pq = ck.segment_moments_plain(x, e, STS_B)
+    torch.testing.assert_close(c, pc, rtol=0, atol=0)
+    assert c[-1] == 0 and not s[-1].any() and not q[-1].any()
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-5 * float(ps.abs().max()))
+    torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5 * float(pq.abs().max()))
+
+
+def _sts_encoder(dtype):
+    from imbalanced_regression_tpu_torch.models.bilstm_pair import PairBiLSTMEncoder
+
+    enc = PairBiLSTMEncoder(40, d_word=16, d_hid=24, n_layers=2, n_highway=1, train_words=True,
+                            dtype=dtype)
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    return enc.eval()
+
+
+def _sts_batch(device):
+    rng = np.random.default_rng(12)
+    out = {}
+    for col, steps in (("1", 9), ("2", 6)):
+        lengths = rng.integers(1, steps + 1, 12)
+        mask = (np.arange(steps)[None] < lengths[:, None]).astype(np.float32)
+        out[f"tokens{col}"] = torch.as_tensor(rng.integers(2, 40, (12, steps)).astype(np.int32)
+                                              * mask.astype(np.int32)).to(device)
+        out[f"mask{col}"] = torch.as_tensor(mask).to(device)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+def test_pair_encoder_on_card_matches_cpu(cuda_device, dtype, tol):
+    """The STS-B encoder's forward and weight gradients on the card against
+    the same weights on the CPU (TF32 off): the output within 1e-5 of its
+    largest magnitude in float32 and within 2^-6 in bf16; each gradient
+    within 1e-4 (float32) or 2^-4 (bf16, forty bf16 rounds of the
+    recurrence on each side, in other summation orders) of its largest."""
+    from imbalanced_regression_tpu_torch.train import set_numerics
+
+    set_numerics()
+    cpu, card = _sts_encoder(dtype), _sts_encoder(dtype).to(cuda_device)
+    outs = []
+    for mod, dev in ((cpu, "cpu"), (card, cuda_device)):
+        out = mod(_sts_batch(dev))
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), {k: p.grad.cpu() for k, p in mod.named_parameters()}))
+    (want, want_g), (got, got_g) = outs
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    for k, w in want_g.items():
+        g_tol = 10 * tol if dtype == torch.float32 else 4 * tol
+        assert float((got_g[k] - w).abs().max()) <= g_tol * float(w.abs().max()), k
