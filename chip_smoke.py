@@ -60,10 +60,27 @@ Phases:
    checkpoints bit-equal to phase 11's; then ``--evaluate --resume`` on
    its store.
 
+13. the age driver on real files at AgeDB-DIR's sizes: a meta CSV of
+   16,488 rows (12,208 / 2,140 / 2,140, the DIR splits; train ages skewed
+   toward 25-45, val and test balanced over 0-101), each row a copy of one
+   of the committed fixture JPEGs (``tests/data/torch_age_jpegs/``), then
+   ``--dataset agedb --batch_size 256 --epoch 2 --fds --lds --reweight
+   sqrt_inv`` in the ``auto`` mode (ram, 2.48 GB): ResNet-50 in bf16, 47
+   steps an epoch, K1/K2 in epoch 1, K3 in both stats passes; decode img/s,
+   data-load seconds, img/s and peak host RSS logged. Then the first 1,024
+   rows, batch 64, one epoch, in ram, mmap and stream mode under
+   ``cudnn.deterministic``: losses and test metrics bit-equal, each mode's
+   img/s, peak RSS and the mmap cache build logged. Where the native loader
+   cannot be built (no libjpeg), the loader decodes through PIL, as the
+   driver does; where PIL is missing too, the phase says so, writes the
+   mmap caches itself from a seed and runs the full-size run in mmap mode
+   only.
+
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
 a bucket whose v1 sums to under 1e-10) and times them there; K1 and K2
-bit-equal to their plain versions.
+bit-equal to their plain versions; and at phase 13's batch (N = 256, D =
+2048, B = 97: AgeDB's buckets 3-99).
 
 Phase 2 also times the per-node floor of a replayed CUDA graph (a
 one-element ``add_``), which bounds the device time of a kernel at the age
@@ -82,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -89,6 +107,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -128,6 +147,20 @@ STS_ARGV = ["--data_dir", STS_DIR, "--word_embs_file", f"{STS_DIR}/glove.txt", "
             "--fds", "--lds", "--reweight", "inverse", "--val_interval", "30", "--max_vals", "3",
             "--cache_dir", f"{STS_DIR}/cache"]
 STS_BATCH = 128  # the recipe's batch: rows per kernel call on the path
+# AgeDB-DIR: the recipe's batch on a real-file corpus at the DIR split sizes
+AGEDB_DIR = "runs/chip_smoke/agedb_data"
+AGEDB_SPLITS = (("train", 12208), ("val", 2140), ("test", 2140))
+AGEDB_ARGV = ["--dataset", "agedb", "--data_dir", AGEDB_DIR, "--img_size", "224",
+              "--batch_size", "256", "--epoch", "2", "--fds", "--lds", "--reweight", "sqrt_inv",
+              "--save_ckpt", "0", "--store_root", "runs/chip_smoke"]
+AGEDB_BATCH = int(AGEDB_ARGV[AGEDB_ARGV.index("--batch_size") + 1])
+AGEDB = (2048, 97)  # (D, B): buckets 3..99 (agedb's bucket_start 3)
+# the mode legs: the CSV's first rows, batch 64, one epoch, paths into the corpus
+LEGS_DIR, LEG_ROWS = f"{AGEDB_DIR}/legs", 1024
+LEG_ARGV = ["--dataset", "agedb", "--data_dir", LEGS_DIR, "--img_size", "224", "--batch_size",
+            "64", "--epoch", "1", "--fds", "--lds", "--reweight", "sqrt_inv", "--save_ckpt", "0",
+            "--store_root", "runs/chip_smoke"]
+FIXTURE_JPEGS = "tests/data/torch_age_jpegs"
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -451,11 +484,12 @@ def graph_floor_ms(dev) -> float:
     return floor
 
 
-def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict]:
+def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict]:
     """Every kernel against its plain version at the age path's batch
     (N_MAIN rows, where the age records are taken), at N = 128, K3/K4 at
     N = 8192; then at the NYUD2 shape; then K1, K2 and K3 at the STS-B
-    shape. Returns the age, depth and STS-B records."""
+    shape and at the AgeDB-DIR batch. Returns the age, depth, STS-B and
+    AgeDB records."""
     gen = torch.Generator(device=dev).manual_seed(0)
     d, b = AGE
     age = {}
@@ -478,7 +512,14 @@ def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict]:
     assert ck.moments_plan(STS_BATCH, STS[0], torch.cuda.get_device_properties(0)
                            .multi_processor_count).kernel == "short"
     log_records(sts)
-    return age, depth, sts
+    agedb = check_calibrate(ck, cal, gen, dev, AGEDB_BATCH, *AGEDB, [("nonzero", (0.1, 10.0))],
+                            record=True)
+    agedb.update(check_moments(ck, gen, dev, AGEDB_BATCH, *AGEDB, record=True,
+                               names=("segment_moments",)))
+    assert ck.moments_plan(AGEDB_BATCH, AGEDB[0], torch.cuda.get_device_properties(0)
+                           .multi_processor_count).kernel == "short"
+    log_records(agedb)
+    return age, depth, sts, agedb
 
 
 def main_path_phase(ck) -> dict:
@@ -1001,27 +1042,239 @@ def sts_resume_phase(ck, full: dict, full_store: str) -> dict:
     return add_counts(add_counts(killed, resumed_launches), eval_launches)
 
 
+def host_probe() -> dict:
+    """What the host offers the JPEG loader: libjpeg's header and shared
+    library, PIL, cores, memory and disk."""
+    def sh(cmd: str) -> str:
+        out = subprocess.run(cmd, shell=True, capture_output=True, text=True)
+        return (out.stdout + out.stderr).strip()
+
+    return {"jpeglib.h": os.path.exists("/usr/include/jpeglib.h"),
+            "ldconfig": sh("ldconfig -p | grep -i jpeg") or "no libjpeg in ldconfig",
+            "PIL": sh(f"{sys.executable} -c 'import PIL; print(PIL.__version__)'").splitlines()[-1],
+            "nproc": sh("nproc"), "free -g": sh("free -g"), "df -h .": sh("df -h .")}
+
+
+class RssPeak:
+    """This process's largest resident set while the block runs, sampled
+    every 10 ms on a thread (the card's machine refuses to reset the
+    kernel's own peak, ``VmHWM``): ``start`` and ``peak`` in GB."""
+
+    def __enter__(self):
+        from imbalanced_regression_tpu_torch.utils.logging_tools import host_memory_gb
+
+        self._rss = lambda: host_memory_gb()[0]
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+
+def write_agedb_corpus(root: str = AGEDB_DIR, seed: int = 0) -> list[dict]:
+    """``agedb.csv`` at ``AGEDB_SPLITS``' sizes, rows in a seeded order, and
+    a copy of a seeded pick of the fixture JPEGs for each row. Train ages:
+    three quarters from N(35, 6), a quarter uniform over 0-101; val and test
+    uniform over 0-101. Returns the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fixtures = sorted(os.path.join(FIXTURE_JPEGS, f) for f in os.listdir(FIXTURE_JPEGS))
+    rows = []
+    for split, n in AGEDB_SPLITS:
+        if split == "train":
+            skewed = rng.random(n) < 0.75
+            ages = np.where(skewed, rng.normal(35, 6, n).round(), rng.integers(0, 102, n))
+            ages = ages.clip(0, 101).astype(int)
+        else:
+            ages = rng.integers(0, 102, n)
+        rows += [{"age": int(a), "split": split} for a in ages]
+    rows = [rows[i] for i in rng.permutation(len(rows))]
+    os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
+    picks = rng.integers(0, len(fixtures), len(rows))
+    for i, (row, pick) in enumerate(zip(rows, picks)):
+        row["path"] = f"imgs/{i:05d}.jpg"
+        shutil.copyfile(fixtures[pick], os.path.join(root, row["path"]))
+    write_meta_csv(os.path.join(root, "agedb.csv"), rows)
+    return rows
+
+
+def write_meta_csv(path: str, rows: list[dict]) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write("age,path,split\n" + "".join(f"{r['age']},{r['path']},{r['split']}\n"
+                                              for r in rows))
+
+
+def write_seeded_mmap_caches(data_dir: str, img_size: int = 224, seed: int = 0) -> None:
+    """Where no JPEG decoder can be built: the decoded-image caches the
+    driver's mmap mode looks for (one a split, under ``corpus_signature``
+    of its paths, with the ``.ok`` marker), filled with uint8 images from
+    ``seed``."""
+    import numpy as np
+
+    from imbalanced_regression_tpu_torch.data.age import read_meta_csv
+    from imbalanced_regression_tpu_torch.data.streaming import corpus_signature
+
+    rng = np.random.default_rng(seed)
+    cache = os.path.join(data_dir, "_cache")
+    os.makedirs(cache, exist_ok=True)
+    for rows in read_meta_csv(os.path.join(data_dir, "agedb.csv")).values():
+        paths = [os.path.join(data_dir, r["path"]) for r in rows]
+        sig = corpus_signature(paths, img_size)
+        npy = os.path.join(cache, f"images_{sig}.npy")
+        out = np.lib.format.open_memmap(npy, mode="w+", dtype=np.uint8,
+                                        shape=(len(paths), img_size, img_size, 3))
+        for start in range(0, len(paths), 1024):
+            stop = min(start + 1024, len(paths))
+            out[start:stop] = rng.integers(0, 256, (stop - start, img_size, img_size, 3),
+                                           dtype=np.uint8)
+        out.flush()
+        del out
+        with open(npy + ".ok", "w") as fh:
+            fh.write(sig)
+
+
+def agedb_run(ck, argv: list) -> tuple[dict, dict, RssPeak]:
+    """``tasks/age.py`` on ``argv`` with the launch counters set to 0 first.
+    Returns the result, the launches and the host RSS it reached."""
+    from imbalanced_regression_tpu_torch.tasks import age
+
+    ck.reset_launch_counts()
+    with RssPeak() as rss:
+        result = age.main(argv)
+        torch.cuda.synchronize()
+    return result, launch_counts(ck), rss
+
+
+def agedb_phase(ck) -> tuple[dict, dict]:
+    """Phase 13. Returns the launches of the full-size run (N = 256 rows a
+    kernel call) and of the mode legs (N = 64)."""
+    from imbalanced_regression_tpu_torch.data import native_loader
+
+    probe = host_probe()
+    for key, value in probe.items():
+        log(f"host probe {key}: {value}")
+    t0 = time.time()
+    rows = write_agedb_corpus()
+    nbytes = sum(os.path.getsize(os.path.join(AGEDB_DIR, r["path"])) for r in rows)
+    log(f"AgeDB-DIR-sized corpus: {len(rows)} rows, {nbytes} bytes of JPEG copies, written in "
+        f"{time.time() - t0:.1f}s")
+    # the loader decodes through libjpeg, or through PIL where the library
+    # cannot be built; with neither, the phase trains on seeded mmap caches
+    native = native_loader.get_lib() is not None
+    decoder = "native libjpeg" if native else f"PIL {probe['PIL']}"
+    decodes = native or importlib.util.find_spec("PIL") is not None
+    argv = AGEDB_ARGV
+    if decodes:
+        threads = 8
+        if not native:
+            log(f"native loader unavailable ({native_loader.build_error()}); decoding with "
+                f"{decoder}")
+        # the first pass also reads the files into the page cache
+        sample = [os.path.join(AGEDB_DIR, r["path"]) for r in rows[:1024]]
+        for n_threads in (threads, 1, threads):
+            t0 = time.perf_counter()
+            native_loader.decode_resize_batch(sample, 224, threads=n_threads)
+            dt = time.perf_counter() - t0
+            log(f"decode ({decoder}): {len(sample)} files to 224x224 in {dt:.3f}s, "
+                f"{len(sample) / dt:.1f} img/s with {n_threads} threads ({os.cpu_count()} cores)")
+    else:
+        log(f"decode: unavailable on this host ({native_loader.build_error()}; jpeglib.h "
+            f"{probe['jpeglib.h']}, ldconfig: {probe['ldconfig']}, PIL: {probe['PIL']})")
+        t0 = time.time()
+        write_seeded_mmap_caches(AGEDB_DIR)
+        log(f"mmap caches of seeded uint8 images written in {time.time() - t0:.1f}s")
+        argv = AGEDB_ARGV + ["--data_mode", "mmap"]
+    t0 = time.time()
+    result, launches, rss = agedb_run(ck, argv)
+    log(f"AgeDB path: {time.time() - t0:.1f}s, data load {result['data_seconds']:.2f}s"
+        + (f" ({len(rows) / result['data_seconds']:.1f} img/s decoded)" if decodes else "")
+        + f", host RSS {rss.start:.3f} GB at the start, peak {rss.peak:.3f} GB, "
+        f"kernel launches {launches}, K3 by kernel {dict(ck.segment_moments.kernels)}")
+    for h in result["history"]:
+        log(f"epoch {h['epoch']}: train_loss {h['train_loss']:.4f} val_l1 {h['val_loss_l1']:.4f} "
+            f"img/s {h['images_per_sec']:.1f} (train {h['train_seconds']:.2f}s, fds pass "
+            f"{h['fds_pass_seconds']:.2f}s) calibrating {h['fds_calibrating']}")
+    log(f"AgeDB test: {result['test']}")
+    steps = dict(AGEDB_SPLITS)["train"] // AGEDB_BATCH
+    assert all(math.isfinite(h["train_loss"]) for h in result["history"]), result["history"]
+    assert all(math.isfinite(v) for v in result["test"].values()), result["test"]
+    want = {"calibrate_forward": steps, "calibrate_backward": steps, "segment_moments": 2 * steps,
+            "segment_moments_v2": 0}
+    assert launches == want, f"launches {launches}, expected {want}"
+    assert ck.segment_moments.kernels == {"short": 2 * steps}, ck.segment_moments.kernels
+    # two epochs: epoch 1 calibrates with the snapshot its own pass has not
+    # taken yet (fds_init's); the two passes moved the statistics
+    fds = result["final_fds"]
+    assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any()
+    del result
+
+    legs_launches = {}
+    if decodes:
+        write_meta_csv(f"{LEGS_DIR}/agedb.csv",
+                       [{**r, "path": f"../{r['path']}"} for r in rows[:LEG_ROWS]])
+        outcomes = {}
+        for mode in ("ram", "mmap", "stream"):
+            with cudnn_determinism(True):
+                t0 = time.time()
+                leg, counts, rss = agedb_run(ck, LEG_ARGV + ["--data_mode", mode])
+            h = leg["history"][0]
+            log(f"leg {mode}: {time.time() - t0:.1f}s, data load {leg['data_seconds']:.2f}s"
+                + (" (the mmap cache build)" if mode == "mmap" else "")
+                + f", {h['images_per_sec']:.1f} img/s, host RSS {rss.start:.3f} GB at the start, "
+                f"peak {rss.peak:.3f} GB, train_loss "
+                f"{h['train_loss']!r}, test {leg['test']}, launches {counts}")
+            outcomes[mode] = ([x["train_loss"] for x in leg["history"]], leg["test"],
+                              leg["best_loss"])
+            legs_launches = add_counts(legs_launches, counts)
+        equal = all(o == outcomes["ram"] for o in outcomes.values())
+        log(f"legs ram / mmap / stream bit-equal: {equal}")
+        assert equal, outcomes
+    else:
+        log("legs skipped: no decoder for the ram and stream modes")
+    shutil.rmtree(AGEDB_DIR)
+    return launches, legs_launches
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
-                   indexed: bool = False) -> None:
+                   indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
     ``steps_in`` under ``torch.profiler``, after the others as warm-up.
     Prints the step time, the device's busy share and the kernels that take
     the most device time, and writes the timeline to
     ``runs/chip_smoke/trace_<name>.json``. ``indexed``: ``steps_in`` are
-    index batches for ``train_step_indexed`` (STS-B pairs)."""
+    index batches for ``train_step_indexed`` (STS-B pairs); ``staged``: the
+    steps run through ``train_epoch``, whose prefetch thread stages each
+    batch through pinned memory on a side stream (the copies then overlap
+    the steps, and count in the device's busy time beside them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step = trainer.train_step_indexed if indexed else trainer.train_step
+
+    def run(batches):
+        if staged:
+            trainer.train_epoch(state, batches, epoch)
+        for b in [] if staged else batches:
+            step(state, b, epoch)
+
     images = len(steps_in[0]) if indexed else len(steps_in[0]["target"])
     unit = "pairs/s" if indexed else "img/s"
-    for b in steps_in[:-steps]:
-        step(state, b, epoch)
+    run(steps_in[:-steps])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in steps_in[-steps:]:
-            step(state, b, epoch)
+        run(steps_in[-steps:])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device activity only (kernels and copies), grouped by name
@@ -1040,6 +1293,9 @@ def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps:
         log(f"  {sum(times) / steps:8.3f} ms/step  x{len(times) // steps:<4d} {kernel[:100]}")
     fds_ms = sum(sum(v) for k, v in by_name.items() if "calibrate_kernel" in k or "moments_kernel" in k)
     log(f"  FDS kernels: {fds_ms / steps:.4f} ms/step")
+    copies = {k: v for k, v in by_name.items() if "Memcpy" in k}
+    log(f"  host-to-device and other copies: {sum(sum(v) for v in copies.values()) / steps:.4f} "
+        f"ms/step ({sorted(k[:60] for k in copies)})")
     upsample = {k: v for k, v in by_name.items() if "upsample" in k}
     log(f"  upsample kernels: {sum(sum(v) for v in upsample.values()) / steps:.4f} ms/step "
         f"({sorted(k[:60] for k in upsample)})")
@@ -1050,8 +1306,10 @@ def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps:
 def profile_phase(steps: int = 5) -> None:
     """Profiled windows of ``steps`` train steps with calibration on (epoch
     2, after two stats passes), after three warm-up steps: the age path's
-    trainer (batch 64, 224x224), the depth path's (batch 32, 228x304) and
-    the STS-B path's (batch 128, indexed, on the phase-11 corpus)."""
+    trainer (batch 64, 224x224), the AgeDB-DIR path's (batch 256 of uint8
+    images through ``train_epoch``'s staging), the depth path's (batch 32,
+    228x304) and the STS-B path's (batch 128, indexed, on the phase-11
+    corpus)."""
     import numpy as np
 
     from imbalanced_regression_tpu_torch.data.batching import batch_iterator
@@ -1066,6 +1324,21 @@ def profile_phase(steps: int = 5) -> None:
     for epoch in (0, 1):  # two stats passes: a non-trivial snapshot for epoch 2
         state = trainer.fds_epoch_pass(state, batches(epoch)[:2], epoch)
     profile_window("age", trainer, state, batches(2)[: 3 + steps], 2, steps)
+
+    # the AgeDB-DIR step: batch 256 of uint8 images, staged by train_epoch
+    acfg = parse_config(AGEDB_ARGV)
+    trainer = age.build_trainer(acfg)
+    state = trainer.init_state(0)
+    rng = np.random.default_rng(0)
+    n = AGEDB_BATCH * (3 + steps)
+    data = {"input": rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8),
+            "target": rng.integers(0, 102, (n, 1)).astype(np.float32),
+            "weight": np.ones((n, 1), np.float32)}
+    batches = list(batch_iterator(data, AGEDB_BATCH, shuffle=False))
+    for epoch in (0, 1):
+        state = trainer.fds_epoch_pass(state, batches[:2], epoch)
+    profile_window("agedb", trainer, state, batches, 2, steps, staged=True)
+    del trainer, state, data, batches
 
     dcfg = nyud2.parse_nyud_config(DEPTH_ARGV)
     train, fds_subset, _ = nyud2.build_data(dcfg)
@@ -1122,7 +1395,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     floor = graph_floor_ms(dev)
-    age_records, depth_records, sts_records = kernel_phase(ck, cal, dev)
+    age_records, depth_records, sts_records, agedb_records = kernel_phase(ck, cal, dev)
     age_launches = main_path_phase(ck)
     depth_launches, depth_result = depth_path_phase(ck)
     stats_launches, stats_records = depth_stats_phase(ck, depth_result)
@@ -1143,21 +1416,25 @@ def main(argv=None) -> int:
     sts_resume_launches = sts_resume_phase(
         ck, sts_result, store_of(parse_sts_config(sts_argv)))
     del sts_result
+    agedb_launches, legs_launches = agedb_phase(ck)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
 
-    # launches by phase: the age shape's records count phases 4, 8 and 9,
-    # the depth shape's phases 5, 6 (K4) and 10, the STS-B shape's 11 and 12
-    age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches}
+    # launches by phase: the age shape's records count phases 4, 8, 9 and
+    # 13's legs (batch 64), the depth shape's phases 5, 6 (K4) and 10, the
+    # STS-B shape's 11 and 12, the AgeDB batch's 13
+    age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
+                  "13": legs_launches}
     depth_phases = {"5": depth_launches, "6": stats_launches, "10": depth_resume_launches}
     sts_phases = {"11": sts_launches, "12": sts_resume_launches}
+    agedb_phases = {"13": agedb_launches}
     kernels = []
     for records, phases in ((age_records, age_phases), (depth_records, depth_phases),
-                            (sts_records, sts_phases)):
+                            (sts_records, sts_phases), (agedb_records, agedb_phases)):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
-            by_phase = {p: n[name] for p, n in phases.items()}
+            by_phase = {p: n.get(name, 0) for p, n in phases.items()}
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"imbalanced_regression_tpu_torch/csrc/{SOURCES[name]}",

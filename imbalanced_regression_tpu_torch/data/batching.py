@@ -63,11 +63,17 @@ def batch_iterator(
     shuffle: bool = True,
     rng: np.random.Generator | None = None,
     drop_last: bool = True,
+    skip: int = 0,
 ) -> Iterator[dict]:
-    """Yield dict batches from a (possibly nested) dict of equal-length arrays."""
+    """Yield dict batches from a (possibly nested) dict of equal-length
+    arrays. The first ``skip`` batches of the shuffled order are left out
+    without gathering their rows (a stream-mode image array never decodes
+    them); the rest are the batches the full stream yields after them."""
     n = _num_examples(data)
-    for idx in index_iterator(n, batch_size, shuffle=shuffle, rng=rng, drop_last=drop_last):
-        yield _take(data, idx)
+    batches = index_iterator(n, batch_size, shuffle=shuffle, rng=rng, drop_last=drop_last)
+    for i, idx in enumerate(batches):
+        if i >= skip:
+            yield _take(data, idx)
 
 
 def infinite_index_batches(

@@ -272,8 +272,8 @@ def run(config: NYUDConfig) -> dict:
         t0 = time.time()
         state, train_loss = trainer.train_epoch(
             state, batch_iterator(train, config.batch_size,
-                                  rng=np.random.default_rng((config.seed, epoch))), epoch,
-            start_step=first, step_hook=step_hook, hook_every=config.ckpt_every_steps)
+                                  rng=np.random.default_rng((config.seed, epoch)), skip=first),
+            epoch, start_step=first, step_hook=step_hook, hook_every=config.ckpt_every_steps)
         train_dt = time.time() - t0  # train_epoch ends in a device sync
         # FDS pass over the clean FDS subset, in order (train.py:216-228)
         t1 = time.time()

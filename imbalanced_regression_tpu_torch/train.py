@@ -34,11 +34,19 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   the backbone stays in train mode, so its BN running statistics still
   update, and FDS still calibrates in the forward (K1), but with no gradient
   to carry back through the encoding the K2 backward never launches.
-- **Mid-epoch resume**: ``train_epoch(start_step=k)`` skips the first k
-  batches of the per-epoch stream without moving them to the device, and a
-  ``step_hook`` sees the post-step state (drivers write checkpoints there);
-  the device generator rides in the checkpoint, so a resumed epoch draws
-  the uninterrupted run's augmentation.
+- **Mid-epoch resume**: ``train_epoch(start_step=k)`` takes a stream that
+  starts at the epoch's step k (``batch_iterator(skip=k)`` leaves the first
+  k batches out without gathering them, so a stream-mode image array never
+  decodes them), and a ``step_hook`` sees the post-step state (drivers
+  write checkpoints there); the device generator rides in the checkpoint,
+  so a resumed epoch draws the uninterrupted run's augmentation.
+- **Staged input**: ``train_epoch`` and ``fds_epoch_pass`` take their host
+  batches through ``prefetch_batches`` (``data/streaming.py``), whose
+  background thread gathers (decodes, pages in) and stages batch k+1 while
+  step k runs. On CUDA the staging copies into pinned buffers and sends
+  them on a side stream (``data/staging.py``); on the CPU it is
+  ``_to_device``. ``train_step``, the eval path and the indexed mode copy
+  in the calling thread.
 
 - **Indexed mode** (STS-B): ``bind_device_data`` puts a whole (small)
   train split on the device once; ``train_step_indexed`` and
@@ -57,14 +65,17 @@ generator in place and returns the same :class:`TrainState`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 from imbalanced_regression_tpu_torch.data.batching import tree_map
+from imbalanced_regression_tpu_torch.data.staging import PinnedStager, StagedBatch
+from imbalanced_regression_tpu_torch.data.streaming import prefetch_batches
 from imbalanced_regression_tpu_torch.fds import (
     FDSConfig,
     FDSState,
@@ -172,6 +183,7 @@ class Trainer:
             raise ValueError(f"optimizer must be 'adam' or 'sgd', got {config.optimizer!r}")
         self._loss_fn = config.loss_fn()
         self._bound_data: dict | None = None
+        self._copy_stream: torch.cuda.Stream | None = None  # side stream of the staged copies
 
     # ------------------------------------------------------------------ setup
     def init_state(self, seed: int = 0) -> TrainState:
@@ -205,6 +217,22 @@ class Trainer:
     def _to_device(self, batch: dict) -> dict:
         return tree_map(lambda v: torch.as_tensor(v).to(self.device, non_blocking=True),
                         {k: v for k, v in batch.items() if k != "count"})
+
+    def _device_batches(self, batches: Iterable[dict]) -> Iterator[dict]:
+        """``batches`` on the device, staged by ``prefetch_batches``' thread
+        one or two batches ahead: on CUDA through pinned buffers on the side
+        stream (:class:`PinnedStager`; the current stream waits on each
+        batch's copy), on the CPU by ``_to_device``. Closing this generator
+        stops the thread."""
+        if self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stage_batch, ready = PinnedStager(self.device, self._copy_stream), StagedBatch.wait
+        else:
+            stage_batch, ready = self._to_device, lambda b: b
+        with contextlib.closing(prefetch_batches(batches, transform=stage_batch)) as staged:
+            for batch in staged:
+                yield ready(batch)
 
     # ---------------------------------------------------- device-resident data
     def bind_device_data(self, data: dict) -> None:
@@ -260,29 +288,29 @@ class Trainer:
     def train_epoch(self, state: TrainState, batches: Iterable[dict], epoch: int, *,
                     start_step: int = 0, step_hook: Callable | None = None,
                     hook_every: int = 0):
-        """One epoch over host batches; returns (state, mean train loss).
+        """One epoch over host batches, staged ahead of the step
+        (:meth:`_device_batches`); returns (state, mean train loss).
 
         Losses stay on the device until the epoch ends; the loss-explosion
         guard (reference train.py:256) therefore fires at epoch granularity.
 
-        ``start_step`` skips the first batches of the (per-epoch-seeded)
-        stream without moving them to the device, so a resumed epoch goes on
-        with the uninterrupted run's step sequence. ``step_hook(state,
-        step_in_epoch)`` is called every ``hook_every`` completed steps with
-        the post-step state, after a device sync."""
+        ``start_step``: the epoch's step that ``batches`` starts at. A
+        resumed epoch passes the (per-epoch-seeded) stream without its first
+        ``start_step`` batches (``batch_iterator(skip=start_step)``), so they
+        never reach the prefetcher and it goes on with the uninterrupted
+        run's step sequence. ``step_hook(state, step_in_epoch)`` is called
+        every ``hook_every`` completed steps with the post-step state, after
+        a device sync."""
         losses, counts = [], []
-        it = iter(batches)
-        for _ in range(start_step):
-            if next(it, None) is None:
-                break
-        for i, batch in enumerate(it, start=start_step):
-            counts.append(len(batch["target"]))
-            state, loss, _ = self.train_step(state, batch, epoch)
-            losses.append(loss)
-            if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                step_hook(state, i + 1)
+        with contextlib.closing(self._device_batches(batches)) as device_batches:
+            for i, b in enumerate(device_batches, start=start_step):
+                counts.append(len(b["target"]))
+                state, loss, _ = self._step(state, b, epoch)
+                losses.append(loss)
+                if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    step_hook(state, i + 1)
         if not losses:
             return state, 0.0
         losses = torch.stack(losses).cpu().numpy()  # single sync
@@ -293,8 +321,10 @@ class Trainer:
 
     def fds_epoch_pass(self, state: TrainState, batches: Iterable[dict], epoch: int) -> TrainState:
         """Epoch-end FDS stats pass (streaming moments), preserving the
-        reference's snapshot-then-update ordering."""
-        return self._fds_pass(state, (self._to_device(b) for b in batches), epoch)
+        reference's snapshot-then-update ordering. Batches are staged as in
+        :meth:`train_epoch`."""
+        with contextlib.closing(self._device_batches(batches)) as device_batches:
+            return self._fds_pass(state, device_batches, epoch)
 
     def fds_epoch_pass_indexed(self, state: TrainState, idx_batches: Iterable, epoch: int) -> TrainState:
         """:meth:`fds_epoch_pass` over index batches of the

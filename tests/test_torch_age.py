@@ -52,8 +52,10 @@ def test_age_driver_two_epochs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--max_steps_per_run", "5"], ["--num_devices", "2"],
-                                  ["--synthetic_size", "0"]])
+                                  ["--synthetic_size", "0", "--num_devices", "2"]])
 def test_unported_flags_raise(tmp_path, flag):
+    """Real datasets are ported (``tests/test_torch_age_realfiles.py``); an
+    unported flag is refused on them too, before any data is read."""
     with pytest.raises(NotImplementedError, match="not ported"):
         age.main(_argv(tmp_path, *flag))
 

@@ -236,11 +236,13 @@ def test_meters_match_jax(caplog):
 def test_train_epoch_start_step_matches_uninterrupted(tmp_path):
     """Checkpoint after step k (from the step hook), restore into a fresh
     trainer, finish the epoch with ``start_step=k`` over the same seeded
-    stream: weights, BN buffers, Adam state, FDS state and generator are
-    bit-identical to the uninterrupted epoch's."""
+    stream from its step k on (``batch_iterator(skip=k)``): weights, BN
+    buffers, Adam state, FDS state and generator are bit-identical to the
+    uninterrupted epoch's."""
     data = synthetic_age_dataset(n=96, img_size=16, seed=0)
     k = 3  # of 6 steps
-    batches = lambda: batch_iterator(data, 16, rng=np.random.default_rng((0, 0)))  # noqa: E731
+    batches = lambda skip=0: batch_iterator(data, 16, rng=np.random.default_rng((0, 0)),  # noqa: E731
+                                            skip=skip)
     trainer = _trainer()
     full, _ = trainer.train_epoch(trainer.init_state(0), batches(), 1)
 
@@ -259,7 +261,7 @@ def test_train_epoch_start_step_matches_uninterrupted(tmp_path):
     trainer_c = _trainer()
     restored, epoch, _ = ckpt.restore_checkpoint(str(tmp_path), trainer_c.init_state(5))
     assert epoch == 1 and restored.step == k
-    resumed, _ = trainer_c.train_epoch(restored, batches(), 1, start_step=k)
+    resumed, _ = trainer_c.train_epoch(restored, batches(skip=k), 1, start_step=k)
     assert resumed.step == full.step == 6
     _assert_modules_equal(resumed, full)
     _assert_fds_equal(resumed.fds, full.fds)

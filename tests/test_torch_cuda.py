@@ -2,9 +2,13 @@
 age slice's shapes (N = 128 rows, D = 2048, B = 100 buckets) with the corner
 cases of the JAX tests, and the segment-moments kernels (K3, K4) also
 against a float64 reference at shapes that take one and several row
-chunks; and the depth decoder's bf16 resize under CUDA autocast (bf16 maps
-into every UpProjection's convolutions, its gradient against float64).
-Marked ``cuda``: they skip where there is no GPU.
+chunks; the depth decoder's bf16 resize under CUDA autocast (bf16 maps
+into every UpProjection's convolutions, its gradient against float64); the
+kernels at the AgeDB-DIR batch (N = 256, D = 2048, B = 97); and the
+prefetched staging of train batches through pinned memory on a side
+stream (byte-equal batches with the pinned ring reused, an age epoch and
+stats pass bit-equal to the synchronous copies). Marked ``cuda``: they skip
+where there is no GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch; there, skip the repository's conftest (which
@@ -351,3 +355,136 @@ def test_pair_encoder_on_card_matches_cpu(cuda_device, dtype, tol):
     for k, w in want_g.items():
         g_tol = 10 * tol if dtype == torch.float32 else 4 * tol
         assert float((got_g[k] - w).abs().max()) <= g_tol * float(w.abs().max()), k
+
+
+# ------------------------------------------- AgeDB-DIR batch and staged input
+# the AgeDB-DIR recipe's batch (K1/K2/K3 rows on the real-data path) and its
+# buckets: bucket_num 100 from bucket_start 3
+AGEDB_N, AGEDB_B = 256, 97
+
+
+@pytest.mark.cuda
+def test_kernels_at_agedb_batch(cuda_device):
+    """K1 and K2 within 1e-6 of their plain versions and K3 (its short-batch
+    kernel) within 1e-5 at N = 256, D = 2048, B = 97, with the corner cases
+    of the JAX tests."""
+    rng = np.random.default_rng(14)
+    t = lambda a: torch.as_tensor(a).to(cuda_device)  # noqa: E731
+    x = rng.normal(size=(AGEDB_N, D)).astype(np.float32)
+    e = rng.integers(0, AGEDB_B, size=AGEDB_N).astype(np.int32)
+    e[:3] = -1
+    ok = rng.random(AGEDB_N) > 0.2
+    m1, m2 = rng.normal(size=(2, AGEDB_B, D)).astype(np.float32)
+    v1, v2 = rng.uniform(0.01, 3.0, size=(2, AGEDB_B, D)).astype(np.float32)
+    v1[2, :] = 0.0
+    v2[6, 1] = -1.0
+    x, e, ok, m1, v1, m2, v2 = map(t, (x, e, ok, m1, v1, m2, v2))
+    for mode, clips in MODES:
+        for xs in (x, x.to(torch.bfloat16)):
+            args = (xs, e, ok, m1, v1, m2, v2, v1.sum(1), *clips, mode)
+            torch.testing.assert_close(ck.calibrate_forward(*args), calibrate_indexed(*args),
+                                       rtol=1e-6, atol=1e-6)
+        g = torch.randn(AGEDB_N, D, device=cuda_device)
+        bargs = (g, e, ok, v1, v2, v1.sum(1), *clips, mode)
+        torch.testing.assert_close(ck.calibrate_backward(*bargs), calibrate_indexed_grad(*bargs),
+                                   rtol=1e-6, atol=1e-6)
+    ck.reset_launch_counts()
+    c, s, q = ck.segment_moments(x, e, AGEDB_B)
+    assert ck.segment_moments.kernels == {"short": 1}
+    pc, ps, pq = ck.segment_moments_plain(x, e, AGEDB_B)
+    torch.testing.assert_close(c, pc, rtol=0, atol=0)
+    torch.testing.assert_close(s, ps, rtol=1e-5, atol=1e-5 * float(ps.abs().max()))
+    torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5 * float(pq.abs().max()))
+
+
+@pytest.mark.cuda
+def test_pinned_staging_equals_host_batches(cuda_device):
+    """200 batches prefetched through pinned buffers on a side stream, while
+    the compute stream lags behind the copies (a sleep kernel before each
+    read): every device batch equals its host batch byte for byte, so the
+    compute stream waited on each copy and no block was handed out again
+    while it was read; the ring's pinned buffers were allocated once and
+    reused."""
+    import contextlib
+
+    from imbalanced_regression_tpu_torch.data.staging import PinnedStager
+    from imbalanced_regression_tpu_torch.data.streaming import prefetch_batches
+
+    rng = np.random.default_rng(15)
+    host = [{"input": rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8),
+             "target": rng.normal(size=(64, 1)).astype(np.float32),
+             "nested": {"idx": rng.integers(-1, 9, 64).astype(np.int32)}, "count": 64}
+            for _ in range(200)]
+    stager = PinnedStager(cuda_device, torch.cuda.Stream(cuda_device))
+    copies = []
+    with contextlib.closing(prefetch_batches(iter(host), transform=stager)) as staged:
+        for item in staged:
+            b = item.wait()
+            torch.cuda._sleep(1_000_000)
+            copies.append({"input": b["input"].clone(), "target": b["target"].clone(),
+                           "idx": b["nested"]["idx"].clone()})
+            del b, item
+    torch.cuda.synchronize()
+    assert len(copies) == 200
+    for h, c in zip(host, copies):
+        assert np.array_equal(c["input"].cpu().numpy(), h["input"])
+        assert np.array_equal(c["target"].cpu().numpy(), h["target"])
+        assert np.array_equal(c["idx"].cpu().numpy(), h["nested"]["idx"])
+    slots = len(stager.buffers)
+    assert stager.allocations == 3 * slots
+    assert all(buf.is_pinned() for slot in stager.buffers for buf in slot.values())
+    assert len({buf.data_ptr() for slot in stager.buffers for buf in slot.values()}) == 3 * slots
+
+
+@pytest.mark.cuda
+def test_staged_age_epoch_matches_synchronous_copies(cuda_device):
+    """One age epoch (K1 and K2 from ``start_smooth = 0``) and a stats pass
+    (K3) through the prefetching staging give losses, weights and FDS
+    moments bit-equal to the same steps fed by the synchronous
+    ``_to_device`` copy (``cudnn.deterministic``)."""
+    from imbalanced_regression_tpu_torch.data.augment import random_crop_flip_normalize
+    from imbalanced_regression_tpu_torch.data.batching import batch_iterator
+    from imbalanced_regression_tpu_torch.data.synthetic import synthetic_age_dataset
+    from imbalanced_regression_tpu_torch.fds import FDSConfig
+    from imbalanced_regression_tpu_torch.models.resnet import RegressionHead, ResNetBasicBackbone
+    from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig
+
+    def trainer():
+        return Trainer(ResNetBasicBackbone(stage_sizes=(1, 1), width=8, dtype=torch.float32),
+                       RegressionHead(16), TrainerConfig(loss="l1", lr=1e-3),
+                       fds_config=FDSConfig.for_age(feature_dim=16, bucket_num=100,
+                                                    start_smooth=0),
+                       train_augment=random_crop_flip_normalize, device=cuda_device)
+
+    data = synthetic_age_dataset(n=160, img_size=32, seed=3)
+    data["weight"] = np.linspace(0.5, 1.5, 160, dtype=np.float32)[:, None]
+    batches = lambda k: batch_iterator(data, 16, rng=np.random.default_rng(k))  # noqa: E731
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        staged_t, sync_t = trainer(), trainer()
+        staged, sync = staged_t.init_state(0), sync_t.init_state(0)
+        ck.reset_launch_counts()
+        staged, staged_loss = staged_t.train_epoch(staged, batches(0), 0)
+        staged = staged_t.fds_epoch_pass(staged, batches(1), 0)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in ck.KERNEL_WRAPPERS}
+        losses = []
+        for b in batches(0):
+            sync, loss, _ = sync_t.train_step(sync, b, 0)
+            losses.append(float(loss))
+        sync = sync_t._fds_pass(sync, (sync_t._to_device(b) for b in batches(1)), 0)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert launches["calibrate_forward"] == 10 and launches["calibrate_backward"] == 10
+    assert launches["segment_moments"] == 10
+    counts = np.full(len(losses), 16)
+    assert staged_loss == float((np.asarray(losses, np.float32) * counts).sum() / counts.sum())
+    for part in ("backbone", "head"):
+        got, want = getattr(staged, part).state_dict(), getattr(sync, part).state_dict()
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    for f in ("running_mean", "running_var", "smoothed_mean_last_epoch",
+              "smoothed_var_last_epoch", "num_samples_tracked"):
+        assert torch.equal(getattr(staged.fds, f), getattr(sync.fds, f)), f

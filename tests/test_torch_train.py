@@ -144,19 +144,25 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_port_never_imports_jax():
-    """Every module of the port imports with jax (and NLTK, which the H100
-    machine lacks) nowhere in sys.modules."""
+    """Every module of the port imports with jax (and NLTK, pandas and PIL,
+    which the H100 machine lacks) nowhere in sys.modules: the age CSV is read
+    with the ``csv`` module, and PIL is imported only inside the reject path
+    of ``decode_resize_batch`` and the NYUD2 real-data loader."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "imbalanced_regression_tpu_torch").rglob("*.py"))
     assert len(modules) >= 27
     assert {"imbalanced_regression_tpu_torch.utils.checkpoint",
-            "imbalanced_regression_tpu_torch.utils.meters"} <= set(modules)
+            "imbalanced_regression_tpu_torch.utils.meters",
+            "imbalanced_regression_tpu_torch.data.age",
+            "imbalanced_regression_tpu_torch.data.native_loader",
+            "imbalanced_regression_tpu_torch.data.staging",
+            "imbalanced_regression_tpu_torch.data.streaming"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', "
-            "'optax', 'orbax', 'nltk', 'imbalanced_regression_tpu.')) "
+            "'optax', 'orbax', 'nltk', 'pandas', 'PIL', 'imbalanced_regression_tpu.')) "
             "or m == 'imbalanced_regression_tpu')\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
