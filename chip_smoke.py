@@ -74,7 +74,18 @@ Phases:
    cannot be built (no libjpeg), the loader decodes through PIL, as the
    driver does; where PIL is missing too, the phase says so, writes the
    mmap caches itself from a seed and runs the full-size run in mmap mode
-   only.
+   only;
+14. serving: phase 8's age store (ResNet-50 in bf16) exported by
+   ``tools/export_model.py`` for uint8 224x224 batches of 128, phase 10's
+   depth store for float32 228x304 batches of 8, phase 11's STS-B store
+   (d_hid 1500, bf16) by ``serving.export_predictor`` for batches of 128
+   pairs padded to 40 tokens; each artifact loaded and held against
+   ``Trainer.predict_batch`` on the same restored state and batch under
+   ``cudnn.deterministic`` (within 2^-6 of the largest magnitude; whether
+   bit-equal is logged), a batch of another size refused, export, load and
+   call times and artifact bytes logged; then ``tools/serve_bench.py`` on
+   the age store at batches 1, 8, 32 and 128. No FDS kernel may launch
+   during the phase.
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -89,8 +100,9 @@ kernel its plan names for the shape: the short-batch kernel on the age
 path, the row split on the depth path.
 ``k3_probe.py`` holds the measurements behind K3's design choices.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line (one
-record per kernel and shape) and as the last line ``{"ok": true, "device":
+Prints the card's name and power limit, a ``{"serving": {...}}`` line
+(phase 14's records), a ``{"kernels": [...]}`` line (one record per kernel
+and shape) and as the last line ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result line, when there is no CUDA device
 or any phase fails.
 """
@@ -161,6 +173,14 @@ LEG_ARGV = ["--dataset", "agedb", "--data_dir", LEGS_DIR, "--img_size", "224", "
             "64", "--epoch", "1", "--fds", "--lds", "--reweight", "sqrt_inv", "--save_ckpt", "0",
             "--store_root", "runs/chip_smoke"]
 FIXTURE_JPEGS = "tests/data/torch_age_jpegs"
+# phase 14: the frozen predictors of phases 8, 10 and 11's stores
+SERVE_DIR = "runs/chip_smoke/serving"
+SERVE_AGE_BATCH, SERVE_DEPTH_BATCH, SERVE_STS_BATCH = 128, 8, 128
+SERVE_BENCH_BATCHES = ("1", "8", "32", "128")
+# a predictor against predict_batch, as a share of the largest magnitude:
+# both run the same aten ops, so they are expected bit-equal; 2^-6 bounds
+# what one cuDNN algorithm for another could change in the bf16 models
+SERVE_TOL = 2.0**-6
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -895,11 +915,13 @@ def rrt_phase(ck, stage1: str) -> dict:
     log(f"--evaluate of the stage-2 store: test {evaluated['test']} (stage 2's own "
         f"{result['test']}); equal: {not diffs}")
     assert not diffs, diffs
+    shutil.rmtree(f"{RESUME_ROOT}/rrt")
     return launches
 
 
-def depth_resume_phase(ck) -> dict:
-    """Phase 10. Returns the launches of its three runs."""
+def depth_resume_phase(ck) -> tuple[dict, str]:
+    """Phase 10. Returns the launches of its three runs and the store of
+    the uninterrupted one."""
     from imbalanced_regression_tpu_torch.tasks import nyud2
     from imbalanced_regression_tpu_torch.utils.checkpoint import checkpoint_path
 
@@ -926,8 +948,8 @@ def depth_resume_phase(ck) -> dict:
     assert not diffs, f"the resumed depth run differs from the uninterrupted one: {diffs[:8]}"
     for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
         assert resumed_launches[name] > 0, f"{name} was not launched on the resumed depth run"
-    shutil.rmtree(RESUME_ROOT)
-    return add_counts(add_counts(full_launches, killed), resumed_launches)
+    shutil.rmtree(f"{RESUME_ROOT}/depth_resumed")  # the uninterrupted store serves in phase 14
+    return add_counts(add_counts(full_launches, killed), resumed_launches), full_store
 
 
 def write_sts_corpus(root: str = STS_DIR, seed: int = 0) -> None:
@@ -1038,7 +1060,7 @@ def sts_resume_phase(ck, full: dict, full_store: str) -> dict:
     diffs = payload_diffs(resumed["test"], evaluated["test"])
     log(f"--evaluate of the resumed store: equal to its final test: {not diffs}")
     assert not diffs, diffs
-    shutil.rmtree(RESUME_ROOT)
+    shutil.rmtree(f"{RESUME_ROOT}/sts_resumed")
     return add_counts(add_counts(killed, resumed_launches), eval_launches)
 
 
@@ -1246,6 +1268,146 @@ def agedb_phase(ck) -> tuple[dict, dict]:
     return launches, legs_launches
 
 
+def rows_of(x, n: int):
+    return {k: v[:n] for k, v in x.items()} if isinstance(x, dict) else x[:n]
+
+
+def hold_predictor(name: str, predict, trainer, state, x) -> dict:
+    """``predict(x)`` against ``trainer.predict_batch`` on the same restored
+    state and batch under ``cudnn.deterministic``: finite, the same shape,
+    within ``SERVE_TOL`` of the largest magnitude (bit-equality logged);
+    then a batch of half the size is refused, and both are timed on the
+    host clock (10 calls each). Returns the max |diff|, whether the two
+    were bit-equal and the two times."""
+    import numpy as np
+
+    n = len(next(iter(x.values()))) if isinstance(x, dict) else len(x)
+    batch = {"input": x, "target": np.zeros((n, 1), np.float32)}
+    with cudnn_determinism(True):
+        got = predict(x)
+        want = trainer.predict_batch(state, batch)
+    assert got.shape == want.shape and np.isfinite(got).all(), (got.shape, want.shape)
+    err = float(np.abs(got.astype(np.float64) - want).max())
+    scale = float(np.abs(want).max())
+    equal = bool(np.array_equal(got, want))
+    log(f"serving {name}: predictor vs predict_batch on {n} rows: max |diff| {err!r} (largest "
+        f"|prediction| {scale!r}, tolerance {SERVE_TOL * scale!r}), bit-equal: {equal}")
+    assert err <= SERVE_TOL * scale, f"{name}: the predictor is {err} from predict_batch"
+    try:
+        predict(rows_of(x, n // 2))
+    except ValueError as exc:
+        log(f"serving {name}: batch {n // 2} refused: {exc}")
+    else:
+        raise AssertionError(f"{name}: a predictor exported for batch {n} served batch {n // 2}")
+    # host numpy in, predictions on the host: each call ends in the fetch
+    times = {}
+    for key, fn in (("serve_ms", lambda: predict(x)),
+                    ("predict_batch_ms", lambda: trainer.predict_batch(state, batch))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        times[key] = (time.perf_counter() - t0) * 1e2
+    log(f"serving {name}: ms per call on the host clock, predictor {times['serve_ms']!r}, "
+        f"predict_batch {times['predict_batch_ms']!r}")
+    return {"max_abs_err": err, "bit_equal": equal, **times}
+
+
+def export_by_cli(task: str, store: str, batch: int):
+    """``tools/export_model.py`` on ``store``'s ``best`` checkpoint at
+    ``batch`` (the task's default input dtype, on cuda), then
+    ``load_predictor_file``. Returns the loaded predictor, the artifact's
+    path and the CLI's and the load's seconds."""
+    from imbalanced_regression_tpu_torch.serving import load_predictor_file
+    from imbalanced_regression_tpu_torch.tools import export_model
+
+    out = f"{SERVE_DIR}/{task}.pt2"
+    t0 = time.perf_counter()
+    export_model.main([store, out, "--task", task, "--batch", str(batch)])
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    predict = load_predictor_file(out)
+    return predict, out, cli_s, time.perf_counter() - t0
+
+
+def serving_phase(ck, age_store: str, depth_store: str, sts_argv: list) -> dict:
+    """Phase 14: the frozen predictors of phase 8's age store (ResNet-50,
+    bf16, uint8 224x224, batch 128, by the export CLI), phase 10's depth
+    store (228x304 float32, batch 8, by the CLI) and phase 11's STS-B store
+    (d_hid 1500, bf16, batch 128 of pairs padded to 40 tokens, by the API)
+    held against ``predict_batch`` on the same restored states; then
+    ``tools/serve_bench.py`` on the age store at batches 1-128. No FDS
+    kernel launches while the phase runs. Returns its records."""
+    import numpy as np
+
+    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+    from imbalanced_regression_tpu_torch.serving import (
+        export_predictor,
+        load_predictor,
+        save_predictor,
+    )
+    from imbalanced_regression_tpu_torch.tasks import stsb
+    from imbalanced_regression_tpu_torch.tools import export_model, serve_bench
+    from imbalanced_regression_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    os.makedirs(SERVE_DIR)
+    rng = np.random.default_rng(14)
+    ck.reset_launch_counts()
+    records = {}
+    t_phase = time.time()
+    for task, store, batch in (("age", age_store, SERVE_AGE_BATCH),
+                               ("nyud2", depth_store, SERVE_DEPTH_BATCH)):
+        predict, out, cli_s, load_s = export_by_cli(task, store, batch)
+        trainer, state = export_model.build_task(
+            task, {"img_size": 224} if task == "age" else {}, "cuda")
+        state, _, _ = restore_checkpoint(store, state, which="best")
+        shape = export_model.sample_shape(task, batch, 224)
+        x = (rng.integers(0, 256, shape, dtype=np.uint8) if task == "age"
+             else rng.random(shape, dtype=np.float32))
+        assert predict.data_avals[0] == (shape, x.dtype), predict.data_avals
+        records[task] = {"input": f"{x.dtype}{list(shape)}", "export_cli_s": cli_s,
+                         "load_s": load_s, "artifact_bytes": os.path.getsize(out),
+                         **hold_predictor(task, predict, trainer, state, x)}
+        log(f"serving {task}: {records[task]}")
+        del predict, trainer, state
+
+    # STS-B by the API: the export CLI serves age and NYUD2 only, as in JAX
+    scfg = stsb.parse_sts_config(sts_argv)
+    _, _, test, emb, vocab = load_stsb_datasets(scfg.data_dir, scfg)
+    trainer = stsb.build_sts_trainer(scfg, len(vocab), emb)
+    state, _, _ = restore_checkpoint(store_of(scfg), trainer.init_state(0), which="best")
+    x = rows_of(test["input"], SERVE_STS_BATCH)
+    assert all(v.shape == (SERVE_STS_BATCH, scfg.max_seq_len) for v in x.values())
+    t0 = time.perf_counter()
+    blob = export_predictor(trainer, state, x)
+    export_s = time.perf_counter() - t0
+    save_predictor(f"{SERVE_DIR}/stsb.pt2", blob)
+    t0 = time.perf_counter()
+    predict = load_predictor(blob)
+    load_s = time.perf_counter() - t0
+    records["stsb"] = {"input": f"dict of 4 x [{SERVE_STS_BATCH}, {scfg.max_seq_len}]",
+                       "export_s": export_s, "load_s": load_s, "artifact_bytes": len(blob),
+                       "graph_nodes": len(predict.module.graph.nodes),
+                       **hold_predictor("stsb", predict, trainer, state, x)}
+    log(f"serving stsb: {records['stsb']}")
+    del predict, trainer, state, blob
+
+    t0 = time.time()
+    rows = serve_bench.main(["--task", "age", "--checkpoint", age_store,
+                             "--batches", *SERVE_BENCH_BATCHES])
+    log(f"serve_bench age: {time.time() - t0:.1f}s for {len(rows)} batch sizes")
+    assert [r["batch"] for r in rows] == [int(b) for b in SERVE_BENCH_BATCHES]
+    assert all(r["ms_per_batch"] > 0 and r["device_ms"] > 0 for r in rows), rows
+    records["serve_bench_age"] = rows
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    log(f"serving phase: {time.time() - t_phase:.1f}s, FDS kernel launches {launches}")
+    assert not any(launches.values()), f"an FDS kernel launched while serving: {launches}"
+    shutil.rmtree(SERVE_DIR)
+    return records
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
                    indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
@@ -1406,7 +1568,7 @@ def main(argv=None) -> int:
     resize_phase(dev)
     resume_launches, stage1 = age_resume_phase(ck)
     rrt_launches = rrt_phase(ck, stage1)
-    depth_resume_launches = depth_resume_phase(ck)
+    depth_resume_launches, depth_store = depth_resume_phase(ck)
     t0 = time.time()
     write_sts_corpus()
     log(f"STS-B corpus and GloVe file written: {time.time() - t0:.1f}s")
@@ -1417,6 +1579,8 @@ def main(argv=None) -> int:
         ck, sts_result, store_of(parse_sts_config(sts_argv)))
     del sts_result
     agedb_launches, legs_launches = agedb_phase(ck)
+    serving = serving_phase(ck, stage1, depth_store, sts_argv)
+    shutil.rmtree(RESUME_ROOT)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
@@ -1443,6 +1607,7 @@ def main(argv=None) -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "graph_floor_ms": floor, "library_ms": r["library_ms"]})
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

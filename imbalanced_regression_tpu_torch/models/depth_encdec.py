@@ -48,8 +48,18 @@ from imbalanced_regression_tpu_torch.models.resnet import (
 )
 
 
-@functools.cache
 def _resize_weights(n_in: int, n_out: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:func:`_resize_weights_uncached`, made once per shape, dtype and
+    device. A trace (``torch.export``, ``torch.compile``) makes its own and
+    leaves the cache alone: its tensors are the tracer's placeholders, which
+    an eager call after it must not find there."""
+    if torch.compiler.is_compiling():
+        return _resize_weights_uncached(n_in, n_out, dtype, device)
+    return _resize_weights_cached(n_in, n_out, dtype, device)
+
+
+def _resize_weights_uncached(n_in: int, n_out: int, dtype: torch.dtype,
+                             device: torch.device) -> torch.Tensor:
     """[n_out, n_in] bilinear weights of ``jax.image.resize`` along one axis
     (``jax._src.image.scale.compute_weight_mat`` with its default
     antialiasing, in float32), cast to ``dtype``: half-pixel centres, the
@@ -61,6 +71,9 @@ def _resize_weights(n_in: int, n_out: int, dtype: torch.dtype, device: torch.dev
     x = (sample[:, None] - torch.arange(n_in, dtype=torch.float32)[None, :]).abs()
     w = (1.0 - x / torch.clamp(inv_scale, min=1.0)).clamp(min=0.0)
     return (w / w.sum(1, keepdim=True)).to(device=device, dtype=dtype)
+
+
+_resize_weights_cached = functools.cache(_resize_weights_uncached)
 
 
 def _resize_bilinear(x: torch.Tensor, size_hw) -> torch.Tensor:

@@ -7,8 +7,9 @@ into every UpProjection's convolutions, its gradient against float64); the
 kernels at the AgeDB-DIR batch (N = 256, D = 2048, B = 97); and the
 prefetched staging of train batches through pinned memory on a side
 stream (byte-equal batches with the pinned ring reused, an age epoch and
-stats pass bit-equal to the synchronous copies). Marked ``cuda``: they skip
-where there is no GPU.
+stats pass bit-equal to the synchronous copies); and frozen predictors
+exported and reloaded on the card, bit-equal to ``predict_batch``. Marked
+``cuda``: they skip where there is no GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch; there, skip the repository's conftest (which
@@ -488,3 +489,61 @@ def test_staged_age_epoch_matches_synchronous_copies(cuda_device):
     for f in ("running_mean", "running_var", "smoothed_mean_last_epoch",
               "smoothed_var_last_epoch", "num_samples_tracked"):
         assert torch.equal(getattr(staged.fds, f), getattr(sync.fds, f)), f
+
+
+# ------------------------------------------------------------------- serving
+def _serving_model(kind: str, dtype: torch.dtype, dev):
+    """(trainer, state, input): a tiny age ResNet on uint8 32x32 images, or
+    a tiny depth encoder-decoder on float32 64x96 images, on the card."""
+    from imbalanced_regression_tpu_torch.data.augment import normalize_only
+    from imbalanced_regression_tpu_torch.data.nyud2 import imagenet_normalize
+    from imbalanced_regression_tpu_torch.models.depth_encdec import (
+        DepthHead,
+        depth_feature_dim,
+    )
+    from imbalanced_regression_tpu_torch.models.resnet import RegressionHead, ResNetBasicBackbone
+    from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig
+
+    rng = np.random.default_rng(15)
+    if kind == "age":
+        trainer = Trainer(ResNetBasicBackbone(stage_sizes=(1, 1), width=8, dtype=dtype),
+                          RegressionHead(16), TrainerConfig(), eval_transform=normalize_only,
+                          device=dev)
+        x = rng.integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    else:
+        trainer = Trainer(DepthEncoderDecoder(stage_sizes=(1, 1, 1, 1), width=8, dtype=dtype),
+                          DepthHead(depth_feature_dim(8 * 32)), TrainerConfig(loss="mse"),
+                          eval_transform=imagenet_normalize, device=dev)
+        x = rng.random((4, 64, 96, 3), dtype=np.float32)
+    return trainer, trainer.init_state(0), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype", [("age", torch.float32), ("age", torch.bfloat16),
+                                        ("depth", torch.bfloat16)])
+def test_exported_predictor_on_card_matches_predict_batch(cuda_device, kind, dtype):
+    """A predictor exported on the card (the default platform) and reloaded
+    there (the default device) gives ``Trainer.predict_batch``'s
+    predictions on the same batch bit for bit under ``cudnn.deterministic``:
+    both run the same aten ops with the same weights in the same layouts.
+    The artifact's cpu program, loaded on request, agrees within 1e-5
+    (float32) or 2^-6 (bf16) of the largest magnitude."""
+    from imbalanced_regression_tpu_torch.serving import export_predictor, load_predictor
+
+    trainer, state, x = _serving_model(kind, dtype, cuda_device)
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        blob = export_predictor(trainer, state, x, platforms=("cuda", "cpu"))
+        predict = load_predictor(blob)
+        got = predict(x)
+        want = trainer.predict_batch(state, {"input": x, "target": np.zeros((len(x), 1))})
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert predict.device.type == "cuda" and predict.platforms == ("cuda", "cpu")
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert np.array_equal(got, want), float(np.abs(got - want).max())
+    on_cpu = load_predictor(blob, "cpu")
+    assert on_cpu.device.type == "cpu"
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-6
+    assert float(np.abs(on_cpu(x) - want).max()) <= tol * float(np.abs(want).max())
