@@ -85,7 +85,25 @@ Phases:
    bit-equal is logged), a batch of another size refused, export, load and
    call times and artifact bytes logged; then ``tools/serve_bench.py`` on
    the age store at batches 1, 8, 32 and 128. No FDS kernel may launch
-   during the phase.
+   during the phase;
+15. data parallelism (``parallel/``) on the card: (a) the age path of
+   phase 4 at a global batch of 128 for two epochs on two ranks sharing
+   the card through gloo (``--num_devices 2 --dist_backend gloo``, which
+   the driver starts itself), beside one process, both under
+   ``cudnn.deterministic``: the ranks' weights, BN buffers and FDS state
+   bit-identical, the FDS counts equal to the one process's, losses and
+   test metrics within 10% relative, and K1, K2 and K3 launched on both
+   ranks as many times as the step counts predict; per-rank img/s and the
+   seconds in collectives logged (two ranks on one card: a correctness
+   gate, not a scaling number); (c) a one-rank NCCL group's float32
+   ResNet-50 step bit-equal to the step without a mesh; (b) that step on
+   two gloo ranks against one process (loss within 1e-5 relative, rtol
+   1e-4 / atol 1e-5 on the BN buffers and the head; the backbone's
+   update within 4 times the gap a 2^-23 input perturbation makes, as its
+   float32 gradients at init are ill-conditioned); (d)
+   ``dryrun_multichip(2, "cuda")``'s checks, on the same two ranks as (b)
+   (one start-up of the ranks for both); and K1-K3
+   at the depth path's rows a rank (N = 16 x 114 x 152), timed and logged.
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -181,6 +199,17 @@ SERVE_BENCH_BATCHES = ("1", "8", "32", "128")
 # both run the same aten ops, so they are expected bit-equal; 2^-6 bounds
 # what one cuDNN algorithm for another could change in the bf16 models
 SERVE_TOL = 2.0**-6
+# phase 15: data parallelism, two ranks sharing the card through gloo
+DP_RANKS = 2
+DP_ARGV = MAIN_ARGV + ["--batch_size", "128", "--epoch", "2"]
+# DP against one process on the bf16 age path: losses and test metrics
+# within 10% relative. bf16, and conv algorithms that differ between 64 and
+# 128 rows, rule out bit-equality; the first card run of this phase showed
+# gaps of up to 4.97% (test MSE; 2.82% on epoch 1's train loss) after six
+# Adam steps, whose first moves every weight by about lr * sign(g): the
+# bound is twice that
+DP_REL_TOL = 0.10
+DP_F32_BATCH = 32  # the float32 step: global batch, 224x224
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -1408,6 +1437,238 @@ def serving_phase(ck, age_store: str, depth_store: str, sts_argv: list) -> dict:
     return records
 
 
+def dp_predicted_launches(argv: list) -> dict:
+    """The kernel launches one rank of the age path makes: K1 and K2 once
+    a train step from ``start_smooth`` on, K3 once a stats-pass batch
+    from ``start_update`` on (the pass runs the train split's drop-last
+    batches, as many as the steps), K4 never."""
+    from imbalanced_regression_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(argv)
+    steps = int(cfg.synthetic_size * 0.7) // cfg.batch_size  # tasks/age.py's 70% train split
+    calibrating = steps * max(cfg.epoch - cfg.start_smooth, 0)
+    return {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
+            "segment_moments": steps * max(cfg.epoch - cfg.start_update, 0),
+            "segment_moments_v2": 0}
+
+
+def dp_age_phase(ck) -> dict:
+    """Phase 15(a): the age driver at full width (ResNet-50 in bf16, LDS +
+    FDS, global batch 128) on two gloo ranks sharing the card, beside the
+    same command on one process, both under ``cudnn.deterministic``.
+    Returns the ranks' launches, summed."""
+    from imbalanced_regression_tpu_torch.tasks import age
+
+    predicted = dp_predicted_launches(DP_ARGV)
+    with cudnn_determinism(True):
+        ck.reset_launch_counts()
+        t0 = time.time()
+        one = age.main(DP_ARGV + ["--num_devices", "1"])
+        torch.cuda.synchronize()
+        one_launches = launch_counts(ck)
+        t1 = time.time()
+        dp = age.main(DP_ARGV + ["--num_devices", str(DP_RANKS), "--dist_backend", "gloo"])
+        t2 = time.time()
+    log(f"DP age path: one process {t1 - t0:.1f}s, {DP_RANKS} ranks {t2 - t1:.1f}s (rank start-up "
+        "included)")
+    reports = dp["ranks"]
+    assert [r["rank"] for r in reports] == list(range(DP_RANKS)), reports
+    assert len({r["digest"] for r in reports}) == 1, \
+        "the ranks ended with different parameters, BN buffers or FDS state"
+    tracked = one["final_fds"].num_samples_tracked.cpu()
+    assert torch.equal(dp["final_fds"].num_samples_tracked, tracked), "FDS counts differ"
+    gaps = {}
+    for h1, hd in zip(one["history"], dp["history"], strict=True):
+        gap = abs(hd["train_loss"] - h1["train_loss"]) / abs(h1["train_loss"])
+        gaps[f"train_loss[{h1['epoch']}]"] = gap
+    for key in ("mse", "l1", "gmean"):
+        gaps[f"test_{key}"] = abs(dp["test"][key] - one["test"][key]) / abs(one["test"][key])
+    log("DP against one process, relative gaps: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" (one: {[h['train_loss'] for h in one['history']]}, test {one['test']}; "
+        f"DP: {[h['train_loss'] for h in dp['history']]}, test {dp['test']})")
+    assert all(g <= DP_REL_TOL for g in gaps.values()), gaps
+    log(f"DP predicted launches a rank {predicted}; one process {one_launches}; ranks "
+        f"{[r['launches'] for r in reports]}, K3 kernels {[r['k3_kernels'] for r in reports]}")
+    assert one_launches == predicted, one_launches
+    for r in reports:
+        assert r["launches"] == predicted, r["launches"]
+        assert r["k3_kernels"] == {"short": predicted["segment_moments"]}, r["k3_kernels"]
+    for h in dp["history"]:
+        log(f"DP epoch {h['epoch']}: img/s {h['images_per_sec']:.1f} "
+            f"({h['images_per_sec_per_rank']:.1f} a rank; two ranks on one card through gloo's host round trip: a correctness gate, "
+            f"not a scaling number), train {h['train_seconds']:.2f}s, fds pass "
+            f"{h['fds_pass_seconds']:.2f}s, calibrating {h['fds_calibrating']}")
+    for h in one["history"]:
+        log(f"one process epoch {h['epoch']}: img/s {h['images_per_sec']:.1f}, train "
+            f"{h['train_seconds']:.2f}s")
+    for r in reports:
+        c = r["collectives"]
+        log(f"rank {r['rank']}: {c['calls']} collectives, {c['bytes'] / 1e6:.1f} MB reduced, "
+            f"{c['seconds']:.3f}s in them over {r['steps']} steps and 2 stats passes "
+            f"({c['seconds'] / r['steps']:.4f}s a step)")
+    return {k: sum(r["launches"][k] for r in reports) for k in predicted}
+
+
+def f32_step(mesh, perturb: float = 0.0) -> dict:
+    """One step of the ResNet-50 Trainer in float32 (TF32 off) with the
+    age FDS calibrating, SGD, on a global batch of ``DP_F32_BATCH`` 224x224
+    images (scaled by ``1 + perturb``), from seed 0; its global loss, its
+    weights before and after (BN buffers apart), its BN buffers and its
+    digest."""
+    from imbalanced_regression_tpu_torch.data.augment import random_crop_flip_normalize
+    from imbalanced_regression_tpu_torch.data.synthetic import synthetic_age_dataset
+    from imbalanced_regression_tpu_torch.fds import FDSConfig
+    from imbalanced_regression_tpu_torch.models.resnet import RegressionHead, ResNetBackbone
+    from imbalanced_regression_tpu_torch.parallel.launch import state_digest
+    from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig
+
+    trainer = Trainer(ResNetBackbone(dtype=torch.float32), RegressionHead(2048),
+                      TrainerConfig(loss="l1", optimizer="sgd", lr=1e-3),
+                      fds_config=FDSConfig.for_age(start_smooth=0),
+                      train_augment=random_crop_flip_normalize, device="cuda", mesh=mesh)
+    state = trainer.init_state(0)
+
+    def tensors(running: bool) -> dict:
+        return {f"{part}.{k}": v.detach().cpu().clone() for part in ("backbone", "head")
+                for k, v in getattr(state, part).state_dict().items() if ("running" in k) == running}
+
+    before = tensors(running=False)
+    data = synthetic_age_dataset(n=DP_F32_BATCH, img_size=224, seed=5)
+    data["input"] = data["input"] * (1.0 + perturb)
+    state, loss, _ = trainer.train_step(state, data, epoch=1)
+    return {"loss": float(trainer.rank_mean(loss)), "before": before,
+            "weights": tensors(running=False), "buffers": tensors(running=True),
+            "digest": state_digest(state),
+            "collectives": None if mesh is None else mesh.stats.calls}
+
+
+def _dp_checks_rank() -> dict:
+    """One rank of (b) and (d), on one start of the ranks: the float32 step
+    (rank 0 alone sends its tensors back; the digest shows the ranks
+    equal), then the dry run's checks."""
+    from imbalanced_regression_tpu_torch.parallel.dryrun import dryrun_rank
+    from imbalanced_regression_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(DP_RANKS, backend="gloo", device="cuda")
+    f32 = f32_step(mesh)
+    del f32["before"]
+    if mesh.rank != 0:
+        del f32["weights"], f32["buffers"]
+    return {"f32": f32, "dryrun": dryrun_rank(DP_RANKS, "cuda")}
+
+
+def update_gap(a: dict, b: dict, before: dict, keys) -> float:
+    """||a - b|| / ||b - before|| over the weights ``keys``: how far two
+    steps' updates differ, relative to the step."""
+    num = sum(float((a[k] - b[k]).double().square().sum()) for k in keys)
+    den = sum(float((b[k] - before[k]).double().square().sum()) for k in keys)
+    return math.sqrt(num / den)
+
+
+def dp_f32_nccl_dryrun_phase() -> None:
+    """Phase 15(c), then (b) and (d) on one start of two gloo ranks sharing
+    the card.
+
+    (c): a one-rank NCCL group's step through ``create_mesh``, bit-equal to
+    the step without a mesh.
+
+    (b): the ranks' float32 step against one process's. The loss, the BN
+    running buffers (forward statistics) and the head's weights are held to
+    JAX ``tests/test_parallel.py``'s bounds (1e-5 relative; rtol 1e-4 / atol
+    1e-5). The backbone's gradients at init are ill-conditioned in float32:
+    the one-process step on inputs scaled by 1 + 2^-23 moves its weights by
+    up to ~4e-4 against the unscaled step (SGD, lr 1e-3). So the backbone's
+    update may differ from one process's by no more than 4 times that
+    step's own rounding-level gap (``update_gap``); both gaps are logged
+    with the count of weights outside the JAX bound.
+
+    (d): ``dryrun_multichip``'s checks (``dryrun_rank`` on each rank,
+    ``check_ranks`` over them): the age, STS-B and NYUD2 families' DP train
+    step, stats pass, padded eval and RRT step, with K1-K3 launched on each
+    rank."""
+    import torch.distributed as dist
+
+    from imbalanced_regression_tpu_torch.parallel.dryrun import check_ranks
+    from imbalanced_regression_tpu_torch.parallel.launch import run_ranks
+    from imbalanced_regression_tpu_torch.parallel.mesh import create_mesh
+
+    t0 = time.time()
+    with cudnn_determinism(True):
+        mesh = create_mesh(1, backend="nccl", device="cuda")
+        try:
+            nccl = f32_step(mesh)
+        finally:
+            dist.destroy_process_group()
+        one = f32_step(None)
+        perturbed = f32_step(None, perturb=2.0**-23)
+    log(f"NCCL one rank: {nccl['collectives']} collectives, loss {nccl['loss']!r} against "
+        f"{one['loss']!r} without a mesh; bit-equal: {nccl['digest'] == one['digest']} "
+        f"({time.time() - t0:.1f}s with the two steps without a mesh)")
+    assert nccl["collectives"] > 0 and mesh.backend == "nccl"
+    assert nccl["digest"] == one["digest"] and nccl["loss"] == one["loss"]
+
+    t0 = time.time()
+    with cudnn_determinism(True):
+        ranks = run_ranks(_dp_checks_rank, DP_RANKS, backend="gloo", timeout_s=600)
+    log(f"(b) and (d) on {DP_RANKS} gloo ranks: {time.time() - t0:.1f}s, rank start-up included")
+    assert ranks[0]["f32"]["digest"] == ranks[1]["f32"]["digest"], \
+        "the float32 ranks ended with different weights"
+    dp = ranks[0]["f32"]
+
+    def outside(run: dict) -> int:
+        return sum(int((~torch.isclose(run["weights"][k], v, rtol=1e-4, atol=1e-5)).sum())
+                   for k, v in one["weights"].items())
+
+    backbone = [k for k in one["weights"] if k.startswith("backbone.")]
+    gaps = {name: update_gap(run["weights"], one["weights"], one["before"], backbone)
+            for name, run in (("dp", dp), ("perturbed", perturbed))}
+    loss_gap = abs(dp["loss"] - one["loss"]) / abs(one["loss"])
+    log(f"float32 step ({DP_RANKS} gloo ranks, global batch {DP_F32_BATCH}, 224x224): loss "
+        f"{dp['loss']!r} against {one['loss']!r} (relative gap {loss_gap:.3e}; inputs x (1 + "
+        f"2^-23): {abs(perturbed['loss'] - one['loss']) / abs(one['loss']):.3e}); backbone "
+        f"update gap {gaps['dp']:.3e} (inputs x (1 + 2^-23): {gaps['perturbed']:.3e}); weights "
+        f"outside rtol 1e-4 / atol 1e-5: {outside(dp)} (perturbed: {outside(perturbed)}) of "
+        f"{sum(v.numel() for v in one['weights'].values())}")
+    assert loss_gap <= 1e-5, loss_gap
+    for k, v in one["buffers"].items():
+        torch.testing.assert_close(dp["buffers"][k], v, rtol=1e-4, atol=1e-5, msg=k)
+    for k, v in one["weights"].items():
+        if k.startswith("head."):
+            torch.testing.assert_close(dp["weights"][k], v, rtol=1e-4, atol=1e-5, msg=k)
+    assert gaps["dp"] <= 4 * gaps["perturbed"], gaps
+
+    out = check_ranks([r["dryrun"] for r in ranks])
+    log(f"dry run (dryrun_multichip's checks) on the same ranks: {out['seconds']:.1f}s in rank 0 "
+        "from its mesh on ("
+        + ", ".join(f"{f} {out[f]['seconds']:.1f}s" for f in ("age", "stsb", "nyud2"))
+        + "), losses " + ", ".join(f"{f} {out[f]['loss']:.4f}" for f in ("age", "stsb", "nyud2"))
+        + f"; launches by rank {[r['launches'] for r in out['ranks']]}")
+    for r in out["ranks"]:
+        for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+            assert r["launches"][name] > 0, f"{name} was not launched on a dry-run rank"
+
+
+def dp_phase(ck, cal, dev) -> dict:
+    """Phase 15: data parallelism on the card (a)-(d), then K1-K3 at the
+    depth path's rows a rank (N = 16 x 114 x 152), logged. Returns (a)'s
+    launches."""
+    t0 = time.time()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, for the ranks
+    launches = dp_age_phase(ck)
+    dp_f32_nccl_dryrun_phase()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    n = N_DEPTH // DP_RANKS
+    per_rank = check_calibrate(ck, cal, gen, dev, n, *DEPTH, [("positive", (0.2, 5.0))],
+                               record=True, iters=10)
+    per_rank.update(check_moments(ck, gen, dev, n, *DEPTH, record=True, iters=10,
+                                  names=("segment_moments",)))
+    log("depth rows a rank (phase 15's layout at the depth path's global batch 32):")
+    log_records(per_rank)
+    log(f"data-parallel phase: {time.time() - t0:.1f}s")
+    return launches
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
                    indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
@@ -1581,15 +1842,17 @@ def main(argv=None) -> int:
     agedb_launches, legs_launches = agedb_phase(ck)
     serving = serving_phase(ck, stage1, depth_store, sts_argv)
     shutil.rmtree(RESUME_ROOT)
+    dp_launches = dp_phase(ck, cal, dev)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
 
-    # launches by phase: the age shape's records count phases 4, 8, 9 and
-    # 13's legs (batch 64), the depth shape's phases 5, 6 (K4) and 10, the
-    # STS-B shape's 11 and 12, the AgeDB batch's 13
+    # launches by phase: the age shape's records count phases 4, 8, 9,
+    # 13's legs (batch 64) and 15's ranks (64 rows each), the depth shape's
+    # phases 5, 6 (K4) and 10, the STS-B shape's 11 and 12, the AgeDB
+    # batch's 13
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
-                  "13": legs_launches}
+                  "13": legs_launches, "15": dp_launches}
     depth_phases = {"5": depth_launches, "6": stats_launches, "10": depth_resume_launches}
     sts_phases = {"11": sts_launches, "12": sts_resume_launches}
     agedb_phases = {"13": agedb_launches}

@@ -18,6 +18,8 @@ it is held against:
 - ``train``   the trainer: Adam or SGD, clipping, RRT, mid-epoch resume,
               indexed steps over device-resident data.
 - ``tasks``   the age-regression, NYUD2 depth and STS-B drivers.
+- ``parallel`` data parallelism over ``torch.distributed``: the mesh, the
+              launch of local ranks, a dry run of every task family.
 - ``serving`` frozen ``torch.export`` predictors: export, load, serve.
 - ``tools``   the export and serve-bench CLIs.
 

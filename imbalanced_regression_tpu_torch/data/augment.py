@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from imbalanced_regression_tpu_torch.parallel import mesh as dp
+
 
 def to_unit_float(images: torch.Tensor) -> torch.Tensor:
     """uint8 [0,255] → float32 [0,1] on the device (ship bytes to the card,
@@ -52,16 +54,18 @@ def crop_flip_normalize(images: torch.Tensor, offs_y: torch.Tensor, offs_x: torc
     return (to_unit_float(cropped) - 0.5) / 0.5
 
 
-def random_crop_flip_normalize(images: torch.Tensor, generator: torch.Generator | None = None,
+def random_crop_flip_normalize(images: torch.Tensor, generator=None,
                                padding: int = 16) -> torch.Tensor:
     """Per-sample random crop from zero-padded images + horizontal flip +
     (-0.5)/0.5 normalization. The offsets and flips are drawn on the
-    images' device from ``generator``."""
+    images' device from ``generator`` (a
+    :class:`parallel.mesh.ShardedGenerator` under a mesh: this rank's rows
+    of the global batch's draws)."""
     n = images.shape[0]
     dev = images.device
-    offs_y = torch.randint(0, 2 * padding + 1, (n,), generator=generator, device=dev)
-    offs_x = torch.randint(0, 2 * padding + 1, (n,), generator=generator, device=dev)
-    flips = torch.rand((n,), generator=generator, device=dev) < 0.5
+    offs_y = dp.randint(2 * padding + 1, (n,), generator, dev)
+    offs_x = dp.randint(2 * padding + 1, (n,), generator, dev)
+    flips = dp.rand((n,), generator, dev) < 0.5
     return crop_flip_normalize(images, offs_y, offs_x, flips, padding)
 
 

@@ -27,6 +27,7 @@ import torch
 
 from imbalanced_regression_tpu_torch.data.augment import to_unit_float
 from imbalanced_regression_tpu_torch.ops.binning import bin_index_depth
+from imbalanced_regression_tpu_torch.parallel import mesh as dp
 
 # Global per-bucket pixel counts of the NYUD2 train split (loaddata.py:11-19).
 TRAIN_BUCKET_NUM = [
@@ -90,17 +91,19 @@ def photometric(images: torch.Tensor, alpha: torch.Tensor, brightness: torch.Ten
     return (x - _const(IMAGENET_MEAN, x)) / _const(IMAGENET_STD, x)
 
 
-def nyud2_train_photometric(images: torch.Tensor, generator: torch.Generator | None = None,
+def nyud2_train_photometric(images: torch.Tensor, generator=None,
                             lighting_std: float = 0.1, jitter: float = 0.4) -> torch.Tensor:
     """:func:`photometric` with per-sample draws from ``generator`` on the
     images' device: ``alpha ~ N(0, lighting_std)``, the three jitter factors
-    uniform in [1 - jitter, 1 + jitter]."""
+    uniform in [1 - jitter, 1 + jitter]. Under a mesh ``generator`` is a
+    :class:`parallel.mesh.ShardedGenerator`: this rank's rows of the global
+    batch's draws."""
     n = images.shape[0]
     dev = images.device
-    alpha = torch.randn((n, 3), generator=generator, device=dev) * lighting_std
+    alpha = dp.randn((n, 3), generator, dev) * lighting_std
 
     def factor():
-        u = torch.rand((n, 1, 1, 1), generator=generator, device=dev)
+        u = dp.rand((n, 1, 1, 1), generator, dev)
         return (1 - jitter) + 2 * jitter * u
 
     brightness, contrast, saturation = factor(), factor(), factor()

@@ -211,18 +211,23 @@ def _bucketize(config: FDSConfig, labels, bucket_idx):
     return idx, is_lo, is_hi, in_range
 
 
-def _sample_ok(config: FDSConfig, labels, is_lo, is_hi, in_range):
+def _sample_ok(config: FDSConfig, labels, is_lo, is_hi, in_range, mesh=None):
     """Per-sample eligibility for smoothing/stats membership.
 
     For the age grouping, pooled out-of-range samples only participate when
     the exact edge label appears in the batch (torch.unique gating,
-    ``imdb-wiki-dir/fds.py:120-136``)."""
+    ``imdb-wiki-dir/fds.py:120-136``); under a data-parallel ``mesh`` the
+    batch is the global one (an all-reduce MAX of the two flags)."""
     if config.grouping != "age":
         return torch.ones(is_lo.shape, dtype=torch.bool, device=is_lo.device)
     labels = _squeeze_labels(labels).to(torch.float32)
     lo = float(config.bucket_start)
     hi = float(config.bucket_num - 1)
-    return in_range | ((labels <= lo) & is_lo.any()) | ((labels >= hi) & is_hi.any())
+    has_lo, has_hi = is_lo.any(), is_hi.any()
+    if mesh is not None:
+        flags = mesh.all_reduce(torch.stack([has_lo, has_hi]).to(torch.int32), op="max")
+        has_lo, has_hi = flags.bool().unbind()
+    return in_range | ((labels <= lo) & has_lo) | ((labels >= hi) & has_hi)
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +341,8 @@ def fds_update_last_epoch_stats(config: FDSConfig, state: FDSState, epoch: int) 
 # ---------------------------------------------------------------------------
 
 
-def fds_smooth(config: FDSConfig, state: FDSState, features, labels, epoch: int, bucket_idx=None):
+def fds_smooth(config: FDSConfig, state: FDSState, features, labels, epoch: int, bucket_idx=None,
+               mesh=None):
     """Calibrate features toward the smoothed bucket statistics.
 
     Functional equivalent of ``FDS.smooth`` (``imdb-wiki-dir/fds.py:115-144``):
@@ -346,7 +352,9 @@ def fds_smooth(config: FDSConfig, state: FDSState, features, labels, epoch: int,
     (NYUD2's [N, H, W, D] hook), flattened to rows here (a view for a
     contiguous map) and returned in the input's shape. The gather and
     calibrate run as one kernel (K1, with K2 as its backward) on a CUDA
-    tensor, and as its plain version on the CPU.
+    tensor, and as its plain version on the CPU. Under a data-parallel
+    ``mesh`` (:mod:`parallel.mesh`) the features are this rank's rows, and
+    the age grouping's edge gate looks at the global batch.
     """
     # The JAX step computes the calibration and then discards it before
     # start_smooth (it is traced once for every epoch); eager PyTorch skips
@@ -355,7 +363,7 @@ def fds_smooth(config: FDSConfig, state: FDSState, features, labels, epoch: int,
         return features
     x = _check_features(config, features)
     idx, is_lo, is_hi, in_range = _bucketize(config, labels, bucket_idx)
-    ok = _sample_ok(config, labels, is_lo, is_hi, in_range)
+    ok = _sample_ok(config, labels, is_lo, is_hi, in_range, mesh)
     v1sum = state.running_var_last_epoch.sum(dim=1)
     calibrated = FDSCalibrate.apply(
         x.contiguous(), idx.contiguous(), ok.contiguous(),

@@ -37,14 +37,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from imbalanced_regression_tpu_torch.models.resnet import dense_reset_
+from imbalanced_regression_tpu_torch.parallel import mesh as dp
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator, groups: int = 1) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability ``1 - rate`` and scale the
-    kept values by ``1 / (1 - rate)``."""
+    kept values by ``1 / (1 - rate)``. ``generator`` may be a
+    :class:`parallel.mesh.ShardedGenerator`, whose draw is this rank's rows
+    of the global batch's; ``groups`` is the number of batch blocks stacked
+    along the leading axis (2 for the pair's two sentence columns)."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = dp.rand(x.shape, generator, x.device, groups) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -187,23 +191,24 @@ class PairBiLSTMEncoder(nn.Module):
         return self
 
     def encode(self, tokens: torch.Tensor, mask: torch.Tensor,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator=None, groups: int = 1) -> torch.Tensor:
         """Sentence encodings [N, 2·d_hid] in float32: embed, highway,
-        dropout, BiLSTM, dropout, max-pool over the valid positions."""
+        dropout, BiLSTM, dropout, max-pool over the valid positions. The N
+        rows are ``groups`` stacked batches (for the dropout draws)."""
         train = self.training
         embs = self.highway(self.embed(tokens))
         if train:
-            embs = dropout(embs, self.dropout_embs, generator)
+            embs = dropout(embs, self.dropout_embs, generator, groups)
         lengths = mask.sum(dim=1).to(torch.int64)
         enc = self.bilstm(embs.to(self.dtype), lengths)
         if train:
-            enc = dropout(enc, self.dropout, generator)
+            enc = dropout(enc, self.dropout, generator, groups)
         # masked max-pool with a -inf fill, in float32 (models.py:159-163);
         # amax shares the gradient among tied maxima, as jnp.max does
         enc = torch.where(mask[..., None] > 0, enc.float(), -math.inf)
         return enc.amax(dim=1)
 
-    def forward(self, batch: dict, generator: torch.Generator | None = None) -> torch.Tensor:
+    def forward(self, batch: dict, generator=None) -> torch.Tensor:
         # both sentence columns run as one doubled batch; each column is
         # right-padded to the longer one (the added positions have mask 0,
         # so lengths and the max-pool do not change)
@@ -211,5 +216,5 @@ class PairBiLSTMEncoder(nn.Module):
         pad = lambda a: F.pad(a, (0, steps - a.shape[1]))  # noqa: E731
         tokens = torch.cat([pad(batch["tokens1"]), pad(batch["tokens2"])])
         mask = torch.cat([pad(batch["mask1"]), pad(batch["mask2"])])
-        s1, s2 = self.encode(tokens, mask, generator).chunk(2)
+        s1, s2 = self.encode(tokens, mask, generator, groups=2).chunk(2)
         return torch.cat([s1, s2, (s1 - s2).abs(), s1 * s2], dim=1)

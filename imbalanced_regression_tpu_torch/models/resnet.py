@@ -35,6 +35,13 @@ the JAX package's ``remat`` modes per residual block:
 The recompute runs each ``BatchNorm.forward`` a second time; it normalizes
 with the batch statistics as before but leaves the running buffers alone, so
 a remat step folds each batch into them once, as a plain step does.
+
+Under a data-parallel mesh of more than one rank (:func:`use_global_batch_norm`),
+training-mode batch norm normalizes with the *global* batch's mean and
+biased variance, as GSPMD's sharded mean does in the JAX package, and its
+backward reduces its two sums over the ranks too (:class:`_GlobalBatchNorm`).
+A remat recompute runs those collectives again; every rank recomputes the
+same blocks in the same order.
 """
 
 from __future__ import annotations
@@ -53,6 +60,8 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
 )
+
+from imbalanced_regression_tpu_torch.parallel import mesh as dp
 
 BN_MOMENTUM = 0.9  # Flax convention: running = 0.9 * running + 0.1 * batch
 BN_EPS = 1e-5
@@ -73,12 +82,66 @@ def _recomputing():
         _recompute.active = before
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch norm of NCHW ``x`` over the global batch of a
+    data-parallel mesh (equal rows a rank). Returns ``(out, mean, var)``,
+    the statistics float32 and the variance biased.
+
+    Forward: each rank's per-channel mean and biased variance, in float32
+    (two passes over ``x``, so bf16 activations do not cancel as E[x^2] -
+    E[x]^2 would), all-reduced in a zeroed [ranks, 2, C] buffer and
+    combined exactly (Chan's formula for equal counts). Backward: the two
+    sums of the input gradient, Σdy and Σdy·x̂, all-reduced in one buffer;
+    the weight and bias gradients are this rank's sums (the trainer
+    averages parameter gradients over the ranks). Only ``x`` and the
+    statistics are kept for the backward, as ``native_batch_norm`` keeps."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh):
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        shape = [1, c] + [1] * (x.ndim - 2)
+        xf = x.float()
+        var_r, mean_r = torch.var_mean(xf, dim=dims, correction=0)
+        stats = xf.new_zeros((mesh.world_size, 2, c))
+        stats[mesh.rank, 0] = mean_r
+        stats[mesh.rank, 1] = var_r
+        means, variances = mesh.all_reduce(stats).unbind(1)
+        mean = means.mean(0)
+        var = (variances + (means - mean).square()).mean(0)
+        invstd = torch.rsqrt(var + BN_EPS)
+        out = (xf - mean.view(shape)) * (invstd * weight).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_mean, _grad_var):
+        x, weight, mean, invstd = ctx.saved_tensors
+        mesh = ctx.mesh
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        shape = [1, c] + [1] * (x.ndim - 2)
+        dy = grad_out.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dy.sum(dims)
+        sum_dy_xhat = (dy * xhat).sum(dims)
+        sums = mesh.all_reduce(torch.stack([sum_dy, sum_dy_xhat]))
+        n = x.numel() // c * mesh.world_size
+        dx = (dy - (sums[0] / n).view(shape) - xhat * (sums[1] / n).view(shape)) \
+            * (invstd * weight).view(shape)
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
+
+
 class BatchNorm(nn.Module):
     """Batch norm over NCHW with Flax's running-statistics update.
 
     Training mode normalizes with the batch mean and biased variance and
     folds them into the running buffers as ``0.9 * running + 0.1 * batch``;
-    eval mode normalizes with the running buffers."""
+    eval mode normalizes with the running buffers. With ``mesh`` set to a
+    mesh of more than one rank (:func:`use_global_batch_norm`), the batch is
+    the global one (:class:`_GlobalBatchNorm`)."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -86,6 +149,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.mesh: dp.Mesh | None = None
 
     def reset_parameters(self) -> None:
         nn.init.ones_(self.weight)
@@ -97,17 +161,30 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, BN_EPS)
-        # native_batch_norm returns the batch mean and 1/sqrt(var + eps) of
-        # the biased variance it normalized with (float32 for bf16 input)
-        out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                    True, 0.0, BN_EPS)
+        if self.mesh is not None and self.mesh.world_size > 1:
+            out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.mesh)
+        else:
+            # native_batch_norm returns the batch mean and 1/sqrt(var + eps) of
+            # the biased variance it normalized with (float32 for bf16 input)
+            out, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                        True, 0.0, BN_EPS)
+            var = None
         if getattr(_recompute, "active", False):
             return out
         with torch.no_grad():
-            var = invstd.double().pow(-2).sub(BN_EPS).float()
+            if var is None:
+                var = invstd.double().pow(-2).sub(BN_EPS).float()
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         return out
+
+
+def use_global_batch_norm(module: nn.Module, mesh: dp.Mesh | None) -> None:
+    """Make every :class:`BatchNorm` in ``module`` normalize over ``mesh``'s
+    global batch in training mode (None: its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -289,7 +366,9 @@ class ResNetBackbone(nn.Module):
 class RegressionHead(nn.Module):
     """Final linear regressor; optional dropout like the reference's
     ``--dropout`` path (``imdb-wiki-dir/resnet.py:146-148``). Dropout draws
-    from the generator passed to ``forward``."""
+    from the generator passed to ``forward`` (a
+    :class:`parallel.mesh.ShardedGenerator` under a mesh: this rank's rows
+    of the global batch's draw)."""
 
     def __init__(self, in_features: int = 2048, out_dim: int = 1, dropout: float | None = None):
         super().__init__()
@@ -302,8 +381,7 @@ class RegressionHead(nn.Module):
 
     def forward(self, encoding: torch.Tensor, generator: torch.Generator | None = None):
         if self.dropout and self.training:
-            keep = torch.rand(encoding.shape, generator=generator,
-                              device=encoding.device) < 1.0 - self.dropout
+            keep = dp.rand(encoding.shape, generator, encoding.device) < 1.0 - self.dropout
             encoding = torch.where(keep, encoding / (1.0 - self.dropout),
                                    torch.zeros_like(encoding))
         return self.linear(encoding.to(torch.float32))

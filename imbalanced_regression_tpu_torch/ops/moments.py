@@ -104,6 +104,21 @@ def bucket_moments(
     return BucketMoments(count=count, total=total, total_sq=total_sq, has_lo=has_lo, has_hi=has_hi)
 
 
+def all_reduce_moments(moments: BucketMoments, mesh) -> BucketMoments:
+    """The moments of the global batch from each rank's, on every rank of a
+    data-parallel ``mesh`` (:mod:`parallel.mesh`): ``count``, ``total`` and
+    ``total_sq`` summed in one all-reduce, ``has_lo`` / ``has_hi`` or-ed
+    (an all-reduce MAX; one rank may be the only one to see an edge
+    label)."""
+    d = moments.total.shape[1]
+    flat = mesh.all_reduce(torch.cat([moments.count[:, None], moments.total, moments.total_sq],
+                                     dim=1))
+    flags = mesh.all_reduce(torch.stack([moments.has_lo, moments.has_hi]).to(torch.int32),
+                            op="max").bool()
+    return BucketMoments(count=flat[:, 0].contiguous(), total=flat[:, 1:1 + d].contiguous(),
+                         total_sq=flat[:, 1 + d:].contiguous(), has_lo=flags[0], has_hi=flags[1])
+
+
 def zero_moments(num_buckets: int, feature_dim: int, device="cuda") -> BucketMoments:
     """Identity element for moment accumulation across batches."""
     return BucketMoments(

@@ -22,7 +22,10 @@ torchvision-format ResNet state dict (the reference's ImageNet weights,
 encoder-decoder and trains ``DepthHead`` only; ``--pretrained <store dir>``
 (which the JAX driver does not read) loads the encoder-decoder and FDS
 statistics of a stage-1 ``best`` first, for the two-stage RRT.
-``--num_devices > 1`` and ``--max_steps_per_run`` are not ported.
+``--num_devices W`` trains data-parallel on W ranks, as in ``tasks/age.py``
+(W must divide ``--batch_size``, ``--test_batch_size`` and the stats pass's
+batch). ``--max_steps_per_run``, which the JAX driver never reads, is
+refused when positive.
 """
 
 from __future__ import annotations
@@ -56,7 +59,13 @@ from imbalanced_regression_tpu_torch.models.depth_encdec import (
     depth_feature_dim,
 )
 from imbalanced_regression_tpu_torch.ops.lds import prepare_weights_depth
-from imbalanced_regression_tpu_torch.tasks.age import setup_logging
+from imbalanced_regression_tpu_torch.parallel.launch import run_driver
+from imbalanced_regression_tpu_torch.parallel.mesh import Mesh
+from imbalanced_regression_tpu_torch.tasks.age import (
+    check_data_parallel,
+    data_parallel_mesh,
+    setup_logging,
+)
 from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig, snapshot_state
 from imbalanced_regression_tpu_torch.utils.checkpoint import (
     has_checkpoint,
@@ -113,17 +122,19 @@ def parse_nyud_config(argv=None) -> NYUDConfig:
 
 
 def check_supported(config: NYUDConfig) -> None:
-    """Raise for the flags whose code paths are not ported."""
+    """Raise for the flags whose code paths are not ported, and for a
+    train or test batch that the data-parallel ranks cannot split (the
+    stats pass's batch is checked once the FDS subset's size is known)."""
     unported = {
-        "--max_steps_per_run": bool(config.max_steps_per_run),
-        "--num_devices > 1": (config.num_devices or 1) > 1,
+        "--max_steps_per_run > 0": config.max_steps_per_run > 0,
     }
     missing = [flag for flag, used in unported.items() if used]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    check_data_parallel(config, config.batch_size, config.test_batch_size)
 
 
-def build_nyud_trainer(config: NYUDConfig) -> Trainer:
+def build_nyud_trainer(config: NYUDConfig, mesh: Mesh | None = None) -> Trainer:
     feat_dim = depth_feature_dim(num_features=config.width * 32,
                                  mff_features=config.mff_features,
                                  decoder_min_features=config.decoder_min_features)
@@ -151,7 +162,7 @@ def build_nyud_trainer(config: NYUDConfig) -> Trainer:
     return Trainer(
         backbone, DepthHead(feat_dim), tcfg, fds_config=fds_config,
         train_augment=nyud2_train_photometric, eval_transform=imagenet_normalize,
-        weight_fn=make_pixel_weight_fn(bucket_weights), device=config.device,
+        weight_fn=make_pixel_weight_fn(bucket_weights), device=config.device, mesh=mesh,
     )
 
 
@@ -215,14 +226,19 @@ def run(config: NYUDConfig) -> dict:
     and, with ``--save_ckpt 0``, the snapshot of the best one.
     ``--evaluate`` returns the test metrics only."""
     check_supported(config)
+    mesh = data_parallel_mesh(config)
+    ranks = 1 if mesh is None else mesh.world_size
     store_dir = os.path.join(config.store_root, config.derived_store_name())
-    setup_logging(store_dir)
+    setup_logging(store_dir, mesh)
     logger.info("Config: %s", config)
 
     train, fds_subset, test = build_data(config)
-    trainer = build_nyud_trainer(config)
-    logger.info("Data: train=%d fds_subset=%d test=%d (device=%s)", len(train["target"]),
-                len(fds_subset["target"]), len(test["target"]), trainer.device)
+    fds_batch = min(config.batch_size, len(fds_subset["target"]))
+    check_data_parallel(config, fds_batch)
+    trainer = build_nyud_trainer(config, mesh)
+    logger.info("Data: train=%d fds_subset=%d test=%d (device=%s, ranks=%d)",
+                len(train["target"]), len(fds_subset["target"]), len(test["target"]),
+                trainer.device, ranks)
     state = trainer.init_state(config.seed)
     if config.pretrained_encoder:
         state = load_pretrained_encoder(state, config.pretrained_encoder)
@@ -239,12 +255,11 @@ def run(config: NYUDConfig) -> dict:
         state = load_backbone_params(config.pretrained, state)
         logger.info("Loaded pretrained encoder-decoder: %s", config.pretrained)
 
-    writer = MetricsWriter(store_dir)
+    writer = MetricsWriter(store_dir, enabled=mesh is None or mesh.rank == 0)
     best_rmse, best_metric, best_epoch, best_snapshot = float("inf"), None, -1, None
     # per-epoch-seeded shuffles + step-located resume, as in tasks/age.py
     # (the reference restarts whole epochs, nyud2-dir/train.py:117-126)
     steps_per_epoch = max(len(train["target"]) // config.batch_size, 1)
-    fds_batch = min(config.batch_size, len(fds_subset["target"]))
     start_epoch, start_step = 0, 0
     if config.resume:
         # the reference's --resume restores the latest checkpoint
@@ -294,14 +309,14 @@ def run(config: NYUDConfig) -> dict:
         throughput = (steps_per_epoch - first) * config.batch_size / train_dt
         rss, peak_rss = host_memory_gb()
         scalars = {"train_loss": train_loss, "test_rmse": rmse, "images_per_sec": throughput,
-                   "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
+                   "images_per_sec_per_rank": throughput / ranks, "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
                    "host_peak_rss_gb": peak_rss}
         writer.log_dict(scalars, epoch)
         writer.log_dict(metric["overall"], epoch, prefix="test_")
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})
         logger.info("Epoch %d: train loss %.4f  test RMSE %.3f (best %.3f)  (%.1fs, %.1f img/s, "
-                    "fds pass %.2fs)", epoch, train_loss, rmse, best_rmse, train_dt, throughput,
-                    fds_dt)
+                    "%.1f img/s/rank, fds pass %.2fs)", epoch, train_loss, rmse, best_rmse,
+                    train_dt, throughput, throughput / ranks, fds_dt)
 
     writer.close()
     if config.save_ckpt:
@@ -327,7 +342,11 @@ def _log_metrics(metric: dict):
 
 
 def main(argv=None):
-    return run(parse_nyud_config(argv))
+    """Parse the flags and run (``--num_devices W > 1``: on W ranks, see
+    :func:`parallel.launch.run_driver`)."""
+    config = parse_nyud_config(argv)
+    check_supported(config)  # before any rank starts
+    return run_driver(run, config)
 
 
 if __name__ == "__main__":

@@ -25,9 +25,12 @@ if there is no ``latest``) at the exact batch of the uninterrupted run;
 ``best`` (of the run's own store dir by default); ``--retrain_fc
 --pretrained <store dir>`` is RRT stage 2 (the encoder of the stage-1
 ``best``, a fresh head, FDS statistics not restored). ``--cache_dir`` moves
-the tokenization cache. Not ported: ``--lstm_impl flax`` (the JAX package's
-pre-round-4 per-direction layout), ``--num_devices > 1`` and
-``--max_steps_per_run``.
+the tokenization cache. ``--num_devices W`` trains data-parallel on W ranks,
+as in ``tasks/age.py``: each rank gathers its rows of every index batch
+from its own copy of the device-resident split; the interval's train loss
+and statistics are the global batches'. Not ported: ``--lstm_impl flax``
+(the JAX package's pre-round-4 per-direction layout) and a positive
+``--max_steps_per_run`` (which the JAX driver never reads).
 """
 
 from __future__ import annotations
@@ -51,7 +54,13 @@ from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
 from imbalanced_regression_tpu_torch.fds import FDSConfig
 from imbalanced_regression_tpu_torch.models.bilstm_pair import PairBiLSTMEncoder
 from imbalanced_regression_tpu_torch.models.resnet import RegressionHead
-from imbalanced_regression_tpu_torch.tasks.age import setup_logging
+from imbalanced_regression_tpu_torch.parallel.launch import run_driver
+from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, rank0_first
+from imbalanced_regression_tpu_torch.tasks.age import (
+    check_data_parallel,
+    data_parallel_mesh,
+    setup_logging,
+)
 from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig
 from imbalanced_regression_tpu_torch.utils.checkpoint import (
     checkpoint_meta,
@@ -122,15 +131,16 @@ def check_supported(config: STSConfig) -> None:
     """Raise for the flags whose code paths are not ported."""
     unported = {
         "--lstm_impl flax (the per-direction BiLSTM layout)": config.lstm_impl != "fused",
-        "--max_steps_per_run": bool(config.max_steps_per_run),
-        "--num_devices > 1": (config.num_devices or 1) > 1,
+        "--max_steps_per_run > 0": config.max_steps_per_run > 0,
     }
     missing = [flag for flag, used in unported.items() if used]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    check_data_parallel(config, config.batch_size)
 
 
-def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray | None) -> Trainer:
+def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray | None,
+                      mesh: Mesh | None = None) -> Trainer:
     d_pair = 2 * config.d_hid * 4  # 12000 at the reference width
     fds_config = None
     if config.fds:
@@ -157,7 +167,7 @@ def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray 
         schedule=(),  # a flat lr (the reference's lr_decay is never applied)
     )
     return Trainer(encoder, RegressionHead(d_pair), tcfg, fds_config=fds_config,
-                   device=config.device)
+                   device=config.device, mesh=mesh)
 
 
 def is_new_best(history: list[float]) -> bool:
@@ -209,16 +219,21 @@ def run(config: STSConfig) -> dict:
     trainer and its (best) state. ``--evaluate`` returns the test metrics
     only."""
     check_supported(config)
+    mesh = data_parallel_mesh(config)
+    ranks = 1 if mesh is None else mesh.world_size
+    rank0 = mesh is None or mesh.rank == 0
     store_dir = os.path.join(config.store_root, config.derived_store_name())
-    setup_logging(store_dir)
+    setup_logging(store_dir, mesh)
     logger.info("Config: %s", config)
 
-    train, val, test, emb, vocab = load_stsb_datasets(config.data_dir, config)
-    trainer = build_sts_trainer(config, len(vocab), emb)
+    # rank 0 writes the tokenization cache before the other ranks read it
+    train, val, test, emb, vocab = rank0_first(
+        mesh, lambda: load_stsb_datasets(config.data_dir, config))
+    trainer = build_sts_trainer(config, len(vocab), emb, mesh)
     state = trainer.init_state(config.seed)
-    logger.info("Data: train=%d val=%d test=%d, vocabulary %d (device=%s)",
+    logger.info("Data: train=%d val=%d test=%d, vocabulary %d (device=%s, ranks=%d)",
                 len(train["target"]), len(val["target"]), len(test["target"]), len(vocab),
-                trainer.device)
+                trainer.device, ranks)
 
     if config.evaluate:
         # --eval_model parity (sts-b-dir/train.py:196-207): the run's own
@@ -264,7 +279,7 @@ def run(config: STSConfig) -> dict:
     gen = infinite_index_batches(n_train, config.batch_size, seed=111 + config.seed,
                                  start_batches=n_pass)
     max_iters = config.val_interval * config.max_vals
-    writer = MetricsWriter(store_dir)
+    writer = MetricsWriter(store_dir, enabled=rank0)
     train_scorer = STSShotAverage()
     train_losses, train_preds = [], []  # on the device until the next check
     checks, stats_seconds = [], []
@@ -297,15 +312,19 @@ def run(config: STSConfig) -> dict:
 
         if n_pass % config.val_interval == 0:
             val_check = n_pass // config.val_interval
-            # the interval's train statistics, fetched once (trainer.py:188-207)
-            preds_cat = torch.cat([p for p, _ in train_preds]).cpu().numpy()
+            # the interval's train statistics, fetched once (trainer.py:188-207);
+            # under a mesh, of the global batches: every rank's predictions
+            # and the ranks' mean loss
+            preds_cat = trainer.all_rows(torch.stack([p for p, _ in train_preds]), dim=1)
+            preds_cat = preds_cat.cpu().numpy()
             targs_cat = np.concatenate([t for _, t in train_preds])
-            tr_loss = float(torch.stack(train_losses).mean())
+            tr_loss = float(trainer.rank_mean(torch.stack(train_losses)).mean())
             train_seconds = time.perf_counter() - t_interval - stats_in_interval
             pairs_per_sec = len(train_losses) * config.batch_size / train_seconds
             train_scorer(preds_cat.reshape(-1), targs_cat.reshape(-1))
             logger.info("*** Val check %d (iter %d, epoch %d) ***", val_check, n_pass, real_epoch)
-            logger.info("train loss: %.6f (%.1f pairs/s)", tr_loss, pairs_per_sec)
+            logger.info("train loss: %.6f (%.1f pairs/s, %.1f pairs/s/rank)", tr_loss,
+                        pairs_per_sec, pairs_per_sec / ranks)
             _log_shots(train_scorer.get_metric(reset=True), "Train")
             train_losses, train_preds = [], []
 
@@ -313,7 +332,8 @@ def run(config: STSConfig) -> dict:
             cur = metric["overall"]["mse"]
             history.append(cur)
             _log_shots(metric, "Val")
-            writer.log_dict({"train_loss": tr_loss, "pairs_per_sec": pairs_per_sec}, val_check)
+            writer.log_dict({"train_loss": tr_loss, "pairs_per_sec": pairs_per_sec,
+                             "pairs_per_sec_per_rank": pairs_per_sec / ranks}, val_check)
             writer.log_dict(metric["overall"], val_check, prefix="val_")
             is_best = is_new_best(history)
             if is_best:
@@ -340,14 +360,19 @@ def run(config: STSConfig) -> dict:
     logger.info("Loaded best checkpoint (epoch %d, val MSE %.4f)", best_epoch, best)
     metric, preds, labels = score_split(trainer, state, test, config.batch_size, return_preds=True)
     _log_shots(metric, "Test")
-    export_predictions(store_dir, config.store_name or "sts", preds, labels)
+    if rank0:
+        export_predictions(store_dir, config.store_name or "sts", preds, labels)
     return {"test": metric, "best_val_mse": best_mse, "iterations": n_pass,
             "val_history": history, "checks": checks, "stats_pass_seconds": stats_seconds,
             "final_fds": final_fds, "trainer": trainer, "state": state}
 
 
 def main(argv=None):
-    return run(parse_sts_config(argv))
+    """Parse the flags and run (``--num_devices W > 1``: on W ranks, see
+    :func:`parallel.launch.run_driver`)."""
+    config = parse_sts_config(argv)
+    check_supported(config)  # before any rank starts
+    return run_driver(run, config)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Single-device trainer: ``backbone -> fds_smooth -> head -> weighted loss
+"""Trainer: ``backbone -> fds_smooth -> head -> weighted loss
 -> Adam``, with the epoch-end FDS stats pass.
 
 The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
@@ -57,6 +57,19 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   STS-B encoder's dropout stays live there, ``sts-b-dir/trainer.py:158-166``);
   the ResNet and depth backbones ignore it.
 
+- **Data parallelism** (``mesh=``, :mod:`parallel.mesh`; the JAX
+  Trainer's ``mesh``): each rank runs this trainer on its contiguous rows
+  of every global batch (host batches, index batches and padded eval
+  batches alike) with a replicated state. Batch norm normalizes over the
+  global batch; after ``loss.backward()`` the gradients are averaged over
+  the ranks in one all-reduce, before the global-norm clip, so the clip
+  sees the global norm as ``optax`` does; the stats pass all-reduces its
+  moments once a pass; augmentation and dropout draw at the global
+  batch's shape and keep the rank's rows; the epoch loss is the global
+  mean; ``predict_batch`` gathers every rank's predictions on every rank.
+  The K1-K3 kernels run on each rank's rows. ``mesh=None`` is the
+  one-process path.
+
 Batches may be nested dicts (STS-B's ``input`` holds four arrays).
 
 The state is mutable: a step updates the modules, the optimizer and the
@@ -86,7 +99,10 @@ from imbalanced_regression_tpu_torch.fds import (
     fds_update_last_epoch_stats,
     fds_zero_moments,
 )
+from imbalanced_regression_tpu_torch.models.resnet import use_global_batch_norm
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
+from imbalanced_regression_tpu_torch.ops.moments import all_reduce_moments
+from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -150,6 +166,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     fds: FDSState | None
     generator: torch.Generator  # augmentation and dropout draws, on the device
+    mesh: Mesh | None = None  # the data-parallel mesh the state is replicated on
 
 
 class Trainer:
@@ -166,6 +183,7 @@ class Trainer:
         eval_transform: Callable | None = None,
         weight_fn: Callable | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
         self.backbone = backbone
         self.head = head
@@ -177,7 +195,13 @@ class Trainer:
         self.train_augment = train_augment
         self.eval_transform = eval_transform
         self.weight_fn = weight_fn
-        self.device = resolve_device(device)
+        # data parallelism: this rank's device is the mesh's
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if (mesh is not None and device is not None
+                and resolve_device(device).type != mesh.device.type):
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        use_global_batch_norm(backbone, mesh)
         set_numerics()
         if config.optimizer not in ("adam", "sgd"):
             raise ValueError(f"optimizer must be 'adam' or 'sgd', got {config.optimizer!r}")
@@ -211,12 +235,39 @@ class Trainer:
             optimizer = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.adam_weight_decay)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         fds = fds_init(self.fds_config, self.device) if self.fds_config else None
-        return TrainState(step=0, backbone=backbone, head=head, optimizer=optimizer, fds=fds,
-                          generator=generator)
+        state = TrainState(step=0, backbone=backbone, head=head, optimizer=optimizer, fds=fds,
+                           generator=generator, mesh=self.mesh)
+        if self.mesh is not None:
+            # every rank seeded the same; the broadcast guards that
+            replicate(self.mesh, state)
+        return state
 
     def _to_device(self, batch: dict) -> dict:
         return tree_map(lambda v: torch.as_tensor(v).to(self.device, non_blocking=True),
                         {k: v for k, v in batch.items() if k != "count"})
+
+    def _local(self, batch: dict) -> dict:
+        """This rank's rows of a global host batch (the batch itself
+        without a mesh)."""
+        if self.mesh is None:
+            return batch
+        return shard_batch(self.mesh, {k: v for k, v in batch.items() if k != "count"})
+
+    def _draws(self, generator: torch.Generator):
+        """The generator as the random draws of a step see it: under a
+        mesh, one that draws at the global batch's shape and keeps this
+        rank's rows."""
+        return generator if self.mesh is None else self.mesh.sharded(generator)
+
+    def rank_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the ranks (``t`` without a mesh): the
+        global batch's mean loss from each rank's."""
+        return t if self.mesh is None else self.mesh.mean(t)
+
+    def all_rows(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """Every rank's rows of ``t`` along ``dim``, in rank order (``t``
+        without a mesh): the global batch's predictions from each rank's."""
+        return t if self.mesh is None else self.mesh.gather_rows(t, dim)
 
     def _device_batches(self, batches: Iterable[dict]) -> Iterator[dict]:
         """``batches`` on the device, staged by ``prefetch_batches``' thread
@@ -230,7 +281,8 @@ class Trainer:
             stage_batch, ready = PinnedStager(self.device, self._copy_stream), StagedBatch.wait
         else:
             stage_batch, ready = self._to_device, lambda b: b
-        with contextlib.closing(prefetch_batches(batches, transform=stage_batch)) as staged:
+        transform = stage_batch if self.mesh is None else lambda b: stage_batch(self._local(b))
+        with contextlib.closing(prefetch_batches(batches, transform=transform)) as staged:
             for batch in staged:
                 yield ready(batch)
 
@@ -238,19 +290,25 @@ class Trainer:
     def bind_device_data(self, data: dict) -> None:
         """Put a (small) dataset on the device once, for
         :meth:`train_step_indexed` and :meth:`fds_epoch_pass_indexed` to
-        gather their batches from (the STS-B-DIR train split is ~2 MB)."""
+        gather their batches from (the STS-B-DIR train split is ~2 MB).
+        Under a mesh every rank holds the whole split and gathers its rows
+        of each index batch."""
         self._bound_data = self._to_device(data)
 
     def _gather(self, idx) -> dict:
         assert self._bound_data is not None, "call bind_device_data first"
+        if self.mesh is not None:
+            idx = shard_batch(self.mesh, np.asarray(idx))
         idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device, non_blocking=True)
         return tree_map(lambda a: a.index_select(0, idx), self._bound_data)
 
     # ------------------------------------------------------------------ steps
     def train_step(self, state: TrainState, batch: dict, epoch: int):
         """One optimization step. Returns (state, loss, predictions); loss
-        and predictions stay on the device (no host sync)."""
-        return self._step(state, self._to_device(batch), epoch)
+        and predictions stay on the device (no host sync). Under a mesh they
+        are this rank's (:meth:`rank_mean`, :meth:`all_rows` combine
+        them)."""
+        return self._step(state, self._to_device(self._local(batch)), epoch)
 
     def train_step_indexed(self, state: TrainState, idx, epoch: int):
         """:meth:`train_step` on rows ``idx`` of the :meth:`bind_device_data`
@@ -264,26 +322,45 @@ class Trainer:
             group["lr"] = lr
         state.backbone.train()
         state.head.train()
+        generator = self._draws(state.generator)
         x = b["input"]
         if self.train_augment is not None:
-            x = self.train_augment(x, state.generator)
-        encoding = state.backbone(x, generator=state.generator)
+            x = self.train_augment(x, generator)
+        encoding = state.backbone(x, generator=generator)
         if self.fds_config is not None:
             encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
-                                  bucket_idx=b.get("bucket_idx"))
-        pred = state.head(encoding, generator=state.generator)
+                                  bucket_idx=b.get("bucket_idx"), mesh=self.mesh)
+        pred = state.head(encoding, generator=generator)
         weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
         scale = self.config.target_scale
         target = b["target"] / scale if scale != 1.0 else b["target"]
         loss = self._loss_fn(pred, target, weights)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            self._average_gradients(state)
         if self.config.clip_grad_norm is not None:
             clip_by_global_norm([p.grad for g in state.optimizer.param_groups for p in g["params"]
                                  if p.grad is not None], self.config.clip_grad_norm)
         state.optimizer.step()
         state.step += 1
         return state, loss.detach(), pred.detach()
+
+    @torch.no_grad()
+    def _average_gradients(self, state: TrainState) -> None:
+        """Average the gradients over the ranks: one all-reduce of one flat
+        buffer. Parameters without a gradient (frozen: RRT's backbone, the
+        STS-B word embeddings) are left out, on every rank alike."""
+        grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if not grads:
+            return
+        flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+        flat.div_(self.mesh.world_size)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
 
     def train_epoch(self, state: TrainState, batches: Iterable[dict], epoch: int, *,
                     start_step: int = 0, step_hook: Callable | None = None,
@@ -313,7 +390,9 @@ class Trainer:
                     step_hook(state, i + 1)
         if not losses:
             return state, 0.0
-        losses = torch.stack(losses).cpu().numpy()  # single sync
+        # single sync; under a mesh the global batches' losses (equal shards:
+        # the mean of the ranks' means)
+        losses = self.rank_mean(torch.stack(losses)).cpu().numpy()
         if np.any(~np.isfinite(losses)) or np.any(losses > 1e6):
             raise FloatingPointError(f"Loss explosion: max={losses.max()}")
         counts = np.asarray(counts)
@@ -337,7 +416,7 @@ class Trainer:
         if cfg is None or epoch < cfg.start_update:
             return state
         moments = fds_zero_moments(cfg, self.device)
-        generator = torch.Generator(device=self.device).manual_seed(epoch)
+        generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
         # train-mode backbone (BN batch stats update and live dropout, like
         # the reference's model.train() + no_grad stats pass), pre-smooth
         # encodings, over the augmented train loader (imdb-wiki-dir/train.py:273)
@@ -348,6 +427,8 @@ class Trainer:
                 x = self.train_augment(x, generator)
             encoding = state.backbone(x, generator=generator)
             moments = moments + fds_bucket_moments(cfg, encoding, b["target"], b.get("bucket_idx"))
+        if self.mesh is not None:
+            moments = all_reduce_moments(moments, self.mesh)  # once a pass
         fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
         state.fds = fds_apply_moments(cfg, fds, moments, epoch)
         return state
@@ -355,15 +436,17 @@ class Trainer:
     @torch.no_grad()
     def predict_batch(self, state: TrainState, batch: dict, count: int | None = None) -> np.ndarray:
         """Predict one (possibly padded) eval batch; returns the first
-        ``count`` rows on the host."""
+        ``count`` rows on the host. Under a mesh each rank predicts its rows
+        of the batch (its padded size must divide over the ranks) and every
+        rank returns all of them, so all ranks decide alike on them."""
         n = count if count is not None else len(batch["target"])
-        b = self._to_device(batch)
+        b = self._to_device(self._local(batch))
         state.backbone.eval()
         state.head.eval()
         x = b["input"]
         if self.eval_transform is not None:
             x = self.eval_transform(x)
-        pred = state.head(state.backbone(x))
+        pred = self.all_rows(state.head(state.backbone(x)))
         return pred.cpu().numpy()[:n]
 
     def predict(self, state: TrainState, batches: Iterable[dict]):

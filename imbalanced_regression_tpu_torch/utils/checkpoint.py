@@ -25,6 +25,10 @@ Replaces the reference's ``torch.save({'epoch', 'model', 'best_loss',
 'state_dict', 'optimizer'})`` + best-copy flow (``imdb-wiki-dir/utils.py:89-94``,
 ``train.py:185-196,209-215``). Also provides the RRT backbone-only load
 (``train.py:174-183``).
+
+Under a data-parallel mesh the state is replicated, so rank 0 alone writes
+it (the file is the one-process run's, and loads into one) while the other
+ranks wait at a barrier; every rank reads a checkpoint.
 """
 
 from __future__ import annotations
@@ -62,7 +66,18 @@ def _device(state) -> torch.device:
 def save_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best: bool,
                     metric_state: dict | None = None) -> None:
     """Save the ``latest`` (and, if ``is_best``, the ``best``) checkpoint,
-    with ``metric_state`` in its ``meta`` when given."""
+    with ``metric_state`` in its ``meta`` when given. For a state on a
+    data-parallel mesh (``state.mesh``) rank 0 writes and every rank
+    returns once it has."""
+    mesh = state.mesh
+    if mesh is None or mesh.rank == 0:
+        _write_checkpoint(ckpt_dir, state, epoch, best_loss, is_best, metric_state)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _write_checkpoint(ckpt_dir: str, state, epoch: int, best_loss: float, is_best: bool,
+                      metric_state: dict | None) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "backbone": state.backbone.state_dict(),

@@ -55,6 +55,9 @@ class ExperimentConfig:
     # TPU-native extras (not in the reference)
     synthetic_size: int = 0  # >0: synthetic dataset of this size (smoke/bench)
     num_devices: int | None = None
+    # process-group backend of a data-parallel run (--num_devices > 1):
+    # None = NCCL on cuda, gloo on cpu; gloo on cuda lets ranks share a card
+    dist_backend: str | None = None
     # backbone rematerialization: "" (off) | conv_outs (save conv outputs,
     # recompute BN/ReLU in backward — cuts HBM residual traffic) | block
     remat: str = ""
@@ -201,7 +204,11 @@ def build_parser(defaults: ExperimentConfig | None = None) -> argparse.ArgumentP
     # TPU-native extras
     p.add_argument("--synthetic_size", type=int, default=d.synthetic_size,
                    help="use a synthetic dataset of this size (0 = real data)")
-    p.add_argument("--num_devices", type=int, default=d.num_devices)
+    p.add_argument("--num_devices", type=int, default=d.num_devices,
+                   help="data-parallel ranks, one device each; --batch_size is the global batch")
+    p.add_argument("--dist_backend", type=str, default=d.dist_backend, choices=["nccl", "gloo"],
+                   help="process-group backend of a data-parallel run (default: nccl on cuda, "
+                        "gloo on cpu; gloo on cuda lets ranks share a card)")
     p.add_argument("--remat", type=str, default=d.remat,
                    choices=["", "conv_outs", "block"],
                    help="backbone remat: save conv outputs and recompute "

@@ -19,13 +19,19 @@ import time
 
 class MetricsWriter:
     """Append-only scalar logger writing one JSON object per line to
-    ``metrics.jsonl`` (machine-readable run history)."""
+    ``metrics.jsonl`` (machine-readable run history). With ``enabled``
+    false (the ranks of a data-parallel run other than 0) it writes
+    nothing."""
 
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
-        self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
+    def __init__(self, log_dir: str, enabled: bool = True):
+        self._jsonl = None
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
+            self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a", buffering=1)
 
     def log_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._jsonl is None:
+            return
         self._jsonl.write(json.dumps(
             {"tag": tag, "value": float(value), "step": int(step), "time": time.time()}
         ) + "\n")
@@ -36,7 +42,8 @@ class MetricsWriter:
                 self.log_scalar(f"{prefix}{key}", value, step)
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
 
 def host_memory_gb() -> tuple[float, float]:

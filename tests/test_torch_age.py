@@ -55,7 +55,14 @@ def test_age_driver_two_epochs_on_cpu(tmp_path):
                                   ["--synthetic_size", "0", "--num_devices", "2"]])
 def test_unported_flags_raise(tmp_path, flag):
     """Real datasets are ported (``tests/test_torch_age_realfiles.py``); an
-    unported flag is refused on them too, before any data is read."""
+    unported flag is refused on them too, before any data is read. Data
+    parallelism is ported (``tests/test_torch_parallel.py``): what
+    ``--num_devices 2`` still refuses, before any data is read or any rank
+    starts, is a batch that the two ranks cannot split."""
+    if "--num_devices" in flag:
+        with pytest.raises(ValueError, match="does not divide over --num_devices 2"):
+            age.main(_argv(tmp_path, *flag, "--batch_size", "15"))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         age.main(_argv(tmp_path, *flag))
 

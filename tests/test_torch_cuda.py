@@ -7,9 +7,11 @@ into every UpProjection's convolutions, its gradient against float64); the
 kernels at the AgeDB-DIR batch (N = 256, D = 2048, B = 97); and the
 prefetched staging of train batches through pinned memory on a side
 stream (byte-equal batches with the pinned ring reused, an age epoch and
-stats pass bit-equal to the synchronous copies); and frozen predictors
-exported and reloaded on the card, bit-equal to ``predict_batch``. Marked
-``cuda``: they skip where there is no GPU.
+stats pass bit-equal to the synchronous copies); frozen predictors
+exported and reloaded on the card, bit-equal to ``predict_batch``; and
+data parallelism on the card: a float32 ResNet-50 step on two gloo ranks
+sharing it against one process, and a one-rank NCCL step bit-equal to the
+step without a mesh. Marked ``cuda``: they skip where there is no GPU.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine with only PyTorch; there, skip the repository's conftest (which
@@ -547,3 +549,65 @@ def test_exported_predictor_on_card_matches_predict_batch(cuda_device, kind, dty
     assert on_cpu.device.type == "cpu"
     tol = 1e-5 if dtype == torch.float32 else 2.0**-6
     assert float(np.abs(on_cpu(x) - want).max()) <= tol * float(np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda_device):
+    """One float32 step of the ResNet-50 Trainer (TF32 off, FDS
+    calibrating, SGD) on two gloo ranks sharing the card, against one
+    process on the same weights and global batch of 32 at 224x224: the
+    ranks bit-identical; the loss within 1e-5 relative and the BN running
+    buffers and the head's weights within rtol 1e-4 / atol 1e-5 (JAX
+    ``tests/test_parallel.py``'s bounds). The backbone's float32 gradients
+    at init are ill-conditioned (the one-process step on inputs scaled by 1
+    + 2^-23 moves some weights by ~4e-4), so its update may differ from one
+    process's by at most 4 times that perturbed step's gap."""
+    import torch_parallel_ranks as ranks
+
+    from imbalanced_regression_tpu_torch.parallel.launch import run_ranks
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        dp = run_ranks(ranks.resnet50_dp_rank, 2, backend="gloo", timeout_s=600)
+        one = ranks.resnet50_step(None, "cuda")
+        perturbed = ranks.resnet50_step(None, "cuda", perturb=2.0**-23)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert dp[0]["digest"] == dp[1]["digest"]
+    np.testing.assert_allclose(dp[0]["loss"], one["loss"], rtol=1e-5)
+    for k, v in one["buffers"].items():
+        torch.testing.assert_close(dp[0]["buffers"][k], v, rtol=1e-4, atol=1e-5, msg=k)
+    for k, v in one["weights"].items():
+        if k.startswith("head."):
+            torch.testing.assert_close(dp[0]["weights"][k], v, rtol=1e-4, atol=1e-5, msg=k)
+    backbone = [k for k in one["weights"] if k.startswith("backbone.")]
+    gap = ranks.update_gap(dp[0]["weights"], one["weights"], one["before"], backbone)
+    noise = ranks.update_gap(perturbed["weights"], one["weights"], one["before"], backbone)
+    assert gap <= 4 * noise, (gap, noise)
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_step_is_bit_equal_to_no_mesh(cuda_device):
+    """A one-rank NCCL group through ``create_mesh``: the step's
+    collectives run on NCCL (the gradient all-reduce, the replication, the
+    FDS edge gate) and leave it bit-equal to the step without a mesh, under
+    ``cudnn.deterministic``."""
+    import torch.distributed as dist
+    import torch_parallel_ranks as ranks
+
+    from imbalanced_regression_tpu_torch.parallel.mesh import create_mesh
+
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        mesh = create_mesh(1, backend="nccl", device="cuda")
+        try:
+            got = ranks.resnet50_step(mesh, "cuda")
+        finally:
+            dist.destroy_process_group()
+        want = ranks.resnet50_step(None, "cuda")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+    assert mesh.backend == "nccl" and mesh.stats.calls > 0
+    assert got["loss"] == want["loss"] and got["digest"] == want["digest"]

@@ -393,6 +393,13 @@ def test_parse_nyud_config_matches_jax():
 
 @pytest.mark.parametrize("kw", [dict(num_devices=2), dict(max_steps_per_run=5)])
 def test_unported_flags_raise(tmp_path, kw):
+    """Data parallelism is ported (``tests/test_torch_parallel.py``): what
+    ``num_devices=2`` still refuses, before any data is read, is a batch
+    that the two ranks cannot split."""
+    if "num_devices" in kw:
+        with pytest.raises(ValueError, match="does not divide over --num_devices 2"):
+            task.run(_config(tmp_path, **kw, batch_size=3))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         task.run(_config(tmp_path, **kw))
 

@@ -192,6 +192,13 @@ def test_is_new_best_needs_strict_improvement(history):
 @pytest.mark.parametrize("flag,value", [("--lstm_impl", "flax"), ("--num_devices", "2"),
                                         ("--max_steps_per_run", "5")])
 def test_refuses_unported_flags(data_dir, tmp_path, flag, value):
+    """Data parallelism is ported (``tests/test_torch_parallel.py``): what
+    ``--num_devices 2`` still refuses, before any data is read or any rank
+    starts, is a batch that the two ranks cannot split."""
+    if flag == "--num_devices":
+        with pytest.raises(ValueError, match="does not divide over --num_devices 2"):
+            stsb.main(_argv(data_dir, tmp_path) + [flag, value, "--batch_size", "7"])
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         stsb.main(_argv(data_dir, tmp_path) + [flag, value])
 
