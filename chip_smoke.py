@@ -10,8 +10,9 @@ Phases:
 1. build the CUDA kernels from ``imbalanced_regression_tpu_torch/csrc``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    age path's batch (N = 64 rows, D = 2048, B = 100 buckets), where K1-K3
-   are timed, and at N = 128 (K3/K4 also at N = 8192); K4 is timed at N = 64
-   too, for the record only (the age path does not run it);
+   are timed, and at N = 128 (the bench's batch, where K1 and K2 are timed
+   too; K3/K4 also at N = 8192); K4 is timed at N = 64 too, for the record
+   only (the age path does not run it);
 3. the same at the NYUD2 stats-pass and train-step shape (N = 32 x 114 x
    152 = 554,496 pixels, D = 128, B = 93): K1/K2 against their plain
    versions in "positive" guard mode; K3/K4 against a float64 reference
@@ -103,7 +104,26 @@ Phases:
    float32 gradients at init are ill-conditioned); (d)
    ``dryrun_multichip(2, "cuda")``'s checks, on the same two ranks as (b)
    (one start-up of the ranks for both); and K1-K3
-   at the depth path's rows a rank (N = 16 x 114 x 152), timed and logged.
+   at the depth path's rows a rank (N = 16 x 114 x 152), timed and logged;
+16. the experiment tools at full width: (a) ``tools/bench.py`` at its
+   defaults (ResNet-50 in bf16, batch 128 of 224x224 uint8 images, FDS
+   calibrating every step; 5 warm-up and 20 timed steps): its JSON line
+   logged, K1 and K2 launched 25 times each and K3 not; (b)
+   ``tools/sweep.py`` on 320 synthetic 224x224 images, 2 epochs, over l1 x
+   {none, sqrt_inv} x LDS {0, 1} x FDS {1} with ``--rrt --rrt_from self``:
+   three stage-1 runs and two RRT stage-2 runs, each timed, K1-K3 launched
+   as the step counts predict; the same command again skips every run
+   from its JSONL and launches nothing; the port's aggregate table; (c)
+   the STS-B driver with ``--lstm_impl flax`` (the per-direction BiLSTM, d_hid
+   1500, bf16) on phase 11's corpus, 45 iterations with one stats pass and
+   one validation check, K1-K3 launched as predicted; ``--evaluate
+   --resume`` on its store without the flag takes the layout from the
+   checkpoint and reproduces the run's test metrics; then the train step in
+   the fused and the per-direction layouts side by side (host-clock ms and
+   the profiler's device busy ms a step); (d) the dataset tools on the
+   card's machine, which has no pandas: a 600-image synthetic corpus, its
+   AgeDB meta CSV and balanced splits, a NYUD2 FDS subset and corpus word
+   vectors from 400 of phase 11's pairs. The phase's seconds are logged.
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -129,7 +149,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib.util
+import itertools
 import json
 import math
 import os
@@ -210,6 +232,22 @@ DP_ARGV = MAIN_ARGV + ["--batch_size", "128", "--epoch", "2"]
 # bound is twice that
 DP_REL_TOL = 0.10
 DP_F32_BATCH = 32  # the float32 step: global batch, 224x224
+# phase 16: the experiment tools. The bench at its defaults (ResNet-50 in
+# bf16, batch 128 of 224x224 uint8 images, 5 + 20 steps, K1/K2 every step)
+BENCH_BATCH = 128  # tools/bench.py's batch: K1/K2's rows there
+TOOLS_ROOT = "runs/chip_smoke/tools"
+# the sweep: ResNet-50 at 224x224 on 320 synthetic images (3 steps of 64
+# an epoch), 2 epochs; grid l1 x {none, sqrt_inv} x LDS {0, 1} x FDS {1}:
+# 3 stage-1 cells (LDS needs re-weighting) and stage 2 of the 2
+# re-weighted ones on their own stores, all with FDS
+SWEEP_ARGV = ["--synthetic_size", "320", "--img_size", "224", "--batch_size", "64", "--epoch",
+              "2", "--losses", "l1", "--reweights", "none", "sqrt_inv", "--lds_options", "0",
+              "1", "--fds_options", "1", "--rrt", "--rrt_from", "self", "--seeds", "0",
+              "--store_root", f"{TOOLS_ROOT}/sweep"]
+# STS-B in the per-direction layout on phase 11's corpus: 45 iterations,
+# one validation check at the end, one stats pass at the rollover of 41
+STS_FLAX_BUDGET = ["--val_interval", "45", "--max_vals", "1"]
+STS_STEPS = (3, 10, 5)  # the layouts' step windows: warm-up, host-timed, profiled
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -533,22 +571,24 @@ def graph_floor_ms(dev) -> float:
     return floor
 
 
-def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict]:
+def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict, dict]:
     """Every kernel against its plain version at the age path's batch
-    (N_MAIN rows, where the age records are taken), at N = 128, K3/K4 at
-    N = 8192; then at the NYUD2 shape; then K1, K2 and K3 at the STS-B
-    shape and at the AgeDB-DIR batch. Returns the age, depth, STS-B and
-    AgeDB records."""
+    (N_MAIN rows, where the age records are taken), K1/K2 at the bench's
+    N = 128 (timed: the bench records), K3/K4 at N = 128 and 8192; then at
+    the NYUD2 shape; then K1, K2 and K3 at the STS-B shape and at the
+    AgeDB-DIR batch. Returns the age, bench, depth, STS-B and AgeDB
+    records."""
     gen = torch.Generator(device=dev).manual_seed(0)
     d, b = AGE
-    age = {}
-    for n in (N_MAIN, 128):
-        age.update(check_calibrate(ck, cal, gen, dev, n, d, b,
-                                   [("nonzero", (0.1, 10.0)), ("positive", (0.5, 2.0))],
-                                   record=n == N_MAIN))
+    age, bench = {}, {}
+    for n, records in ((N_MAIN, age), (BENCH_BATCH, bench)):
+        records.update(check_calibrate(ck, cal, gen, dev, n, d, b,
+                                       [("nonzero", (0.1, 10.0)), ("positive", (0.5, 2.0))],
+                                       record=True))
     for n in (N_MAIN, 128, 8192):
         age.update(check_moments(ck, gen, dev, n, d, b, record=n == N_MAIN))
     log_records(age)
+    log_records(bench)
     age.pop("segment_moments_v2")  # not on the age path: logged, not a record
     depth = check_calibrate(ck, cal, gen, dev, N_DEPTH, *DEPTH, [("positive", (0.2, 5.0))],
                             record=True, iters=10)
@@ -568,7 +608,7 @@ def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict]:
     assert ck.moments_plan(AGEDB_BATCH, AGEDB[0], torch.cuda.get_device_properties(0)
                            .multi_processor_count).kernel == "short"
     log_records(agedb)
-    return age, depth, sts, agedb
+    return age, bench, depth, sts, agedb
 
 
 def main_path_phase(ck) -> dict:
@@ -1437,18 +1477,18 @@ def serving_phase(ck, age_store: str, depth_store: str, sts_argv: list) -> dict:
     return records
 
 
-def dp_predicted_launches(argv: list) -> dict:
-    """The kernel launches one rank of the age path makes: K1 and K2 once
-    a train step from ``start_smooth`` on, K3 once a stats-pass batch
-    from ``start_update`` on (the pass runs the train split's drop-last
-    batches, as many as the steps), K4 never."""
-    from imbalanced_regression_tpu_torch.utils.config import parse_config
-
-    cfg = parse_config(argv)
+def age_predicted_launches(cfg, rrt_stage2: bool = False) -> dict:
+    """The kernel launches one rank of the age path on synthetic data makes
+    under ``cfg``: with FDS, K1 and K2 once a train step from
+    ``start_smooth`` on (K2 never in RRT stage 2, whose frozen backbone
+    takes no gradient), K3 once a stats-pass batch from ``start_update``
+    on (the pass runs the train split's drop-last batches, as many as the
+    steps), K4 never."""
     steps = int(cfg.synthetic_size * 0.7) // cfg.batch_size  # tasks/age.py's 70% train split
-    calibrating = steps * max(cfg.epoch - cfg.start_smooth, 0)
-    return {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
-            "segment_moments": steps * max(cfg.epoch - cfg.start_update, 0),
+    calibrating = steps * max(cfg.epoch - cfg.start_smooth, 0) if cfg.fds else 0
+    return {"calibrate_forward": calibrating,
+            "calibrate_backward": 0 if rrt_stage2 else calibrating,
+            "segment_moments": steps * max(cfg.epoch - cfg.start_update, 0) if cfg.fds else 0,
             "segment_moments_v2": 0}
 
 
@@ -1458,8 +1498,9 @@ def dp_age_phase(ck) -> dict:
     same command on one process, both under ``cudnn.deterministic``.
     Returns the ranks' launches, summed."""
     from imbalanced_regression_tpu_torch.tasks import age
+    from imbalanced_regression_tpu_torch.utils.config import parse_config
 
-    predicted = dp_predicted_launches(DP_ARGV)
+    predicted = age_predicted_launches(parse_config(DP_ARGV))
     with cudnn_determinism(True):
         ck.reset_launch_counts()
         t0 = time.time()
@@ -1669,6 +1710,252 @@ def dp_phase(ck, cal, dev) -> dict:
     return launches
 
 
+def bench_phase(ck) -> dict:
+    """Phase 16(a): ``tools/bench.py`` at its defaults. Returns its
+    launches: K1 and K2 once a step (warm-up and timed), K3 none."""
+    from imbalanced_regression_tpu_torch.tools import bench
+
+    ck.reset_launch_counts()
+    t0 = time.time()
+    line = bench.main([])
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    log(f"bench ({time.time() - t0:.1f}s): {json.dumps(line)}")
+    steps = bench.WARMUP + bench.STEPS
+    assert line["batch"] == BENCH_BATCH and line["launches"] == launches, line
+    assert launches == {"calibrate_forward": steps, "calibrate_backward": steps,
+                        "segment_moments": 0, "segment_moments_v2": 0}, launches
+    assert math.isfinite(line["final_loss"]) and line["value"] > 0, line
+    return launches
+
+
+def sweep_predicted_launches(argv: list) -> dict:
+    """The launches of ``tools/sweep.py`` over ``argv``'s grid: each cell's
+    and each RRT stage 2's (``age_predicted_launches``)."""
+    from imbalanced_regression_tpu_torch.tools import sweep
+
+    args = sweep.parse_args(argv)
+    total = {}
+    for cfg in sweep.grid(args):
+        total = add_counts(total, age_predicted_launches(cfg))
+        if args.rrt and cfg.reweight != "none":
+            total = add_counts(total, age_predicted_launches(cfg, rrt_stage2=True))
+    return total
+
+
+def sweep_phase(ck) -> dict:
+    """Phase 16(b): ``tools/sweep.py`` over ``SWEEP_ARGV``'s grid at full
+    width (five runs, each timed), then the same command again, which
+    skips every cell from the JSONL and launches nothing, then the port's
+    aggregate table. Returns the first sweep's launches."""
+    from imbalanced_regression_tpu_torch.tools import aggregate_results, sweep
+
+    root = SWEEP_ARGV[SWEEP_ARGV.index("--store_root") + 1]
+    shutil.rmtree(root, ignore_errors=True)
+    real_run, seconds = sweep.age.run, []
+
+    def timed_run(config):
+        t0 = time.time()
+        result = real_run(config)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        return result
+
+    sweep.age.run = timed_run
+    try:
+        ck.reset_launch_counts()
+        t0 = time.time()
+        path = sweep.main(SWEEP_ARGV)
+        torch.cuda.synchronize()
+        launches = launch_counts(ck)
+        t1 = time.time()
+        records = aggregate_results.load(path)
+        ck.reset_launch_counts()
+        sweep.main(SWEEP_ARGV)
+        relaunch = launch_counts(ck)
+        t2 = time.time()
+    finally:
+        sweep.age.run = real_run
+    predicted = sweep_predicted_launches(SWEEP_ARGV)
+    stage2 = [r for r in records if "rrt_from" in r]
+    log(f"sweep: {t1 - t0:.1f}s for {len(records)} runs, seconds a run "
+        f"{[round(x, 2) for x in seconds]}; launches {launches} (predicted {predicted}); "
+        f"relaunch {t2 - t1:.2f}s, launches {relaunch}")
+    assert len(records) == len(seconds) == 5 and len(stage2) == 2, [r["name"] for r in records]
+    assert all(r["rrt_from"] == r["config"]["pretrained"].rsplit("/", 1)[-1] for r in stage2)
+    assert all(r["config"]["fds"] for r in records)
+    assert all(math.isfinite(v) for r in records for v in r["test"].values()), records
+    assert launches == predicted, launches
+    assert not any(relaunch.values()), relaunch
+    assert aggregate_results.load(path) == records, "the relaunch appended records"
+    aggregate_results.print_table(aggregate_results.aggregate(records, "l1"), "l1")
+    sys.stdout.flush()
+    shutil.rmtree(root)
+    return launches
+
+
+def sts_layout_window(trainer, state, batches, epoch: int) -> tuple[float, float, int]:
+    """(host-clock ms a step, device busy ms a step, device activities a
+    step) of the indexed train step: ``STS_STEPS``' warm-up, then its
+    host-timed steps, then its profiled ones."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    warmup, timed, profiled = STS_STEPS
+    for idx in batches[:warmup]:
+        trainer.train_step_indexed(state, idx, epoch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in batches[warmup:warmup + timed]:
+        trainer.train_step_indexed(state, idx, epoch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / timed
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for idx in batches[warmup + timed:warmup + timed + profiled]:
+            trainer.train_step_indexed(state, idx, epoch)
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    return host_ms, sum(times) / profiled, len(times) // profiled
+
+
+def sts_flax_phase(ck) -> dict:
+    """Phase 16(c): the STS-B driver with ``--lstm_impl flax`` at full width
+    on phase 11's corpus (45 iterations: one stats pass after the 41 steps
+    of epoch 0, K1/K2 in the 4 steps after it, one validation check), then ``--evaluate --resume`` on
+    its store without the flag (the layout from the checkpoint), which
+    reproduces the run's test metrics; then the train step in the fused
+    and the per-direction layouts side by side. Returns the run's
+    launches."""
+    import numpy as np
+
+    from imbalanced_regression_tpu_torch.data.batching import index_iterator
+    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    root = f"{TOOLS_ROOT}/sts_flax"
+    argv = with_root(STS_ARGV + STS_FLAX_BUDGET + ["--lstm_impl", "flax"], root)
+    cfg = stsb.parse_sts_config(argv)
+    store = store_of(cfg)
+    train, _, _, emb, vocab = load_stsb_datasets(cfg.data_dir, cfg)
+    n = len(train["target"])
+    # epoch 0's steps, then the stats pass over as many batches, then the
+    # calibrating steps of epoch 1
+    n_batches = n // STS_BATCH
+    calibrating = cfg.val_interval * cfg.max_vals - n_batches
+    predicted = {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
+                 "segment_moments": n_batches, "segment_moments_v2": 0}
+    ck.reset_launch_counts()
+    t0 = time.time()
+    result = stsb.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    t1 = time.time()
+    evaluated = stsb.main(STS_ARGV + STS_FLAX_BUDGET + ["--store_root", root, "--evaluate",
+                                                         "--resume", store])
+    torch.cuda.synchronize()
+    diffs = payload_diffs(result["test"], evaluated["test"])
+    log(f"STS-B flax layout: {t1 - t0:.1f}s, {result['iterations']} iterations, launches "
+        f"{launches} (predicted {predicted}), K3 by kernel {dict(ck.segment_moments.kernels)}; "
+        f"val {result['val_history']}, stats pass {result['stats_pass_seconds']} s; test "
+        f"overall {result['test']['overall']}; --evaluate without the flag ({time.time() - t1:.1f}"
+        f"s) equal: {not diffs}")
+    encoder = result["trainer"].backbone
+    assert encoder.lstm_impl == "flax", encoder.lstm_impl
+    assert result["iterations"] == cfg.val_interval * cfg.max_vals, result["iterations"]
+    assert len(result["stats_pass_seconds"]) == 1 and calibrating > 0, result["checks"]
+    assert all(math.isfinite(c["train_loss"]) for c in result["checks"]), result["checks"]
+    assert all(math.isfinite(v) for v in result["test"]["overall"].values()), result["test"]
+    assert launches == predicted, launches
+    assert not diffs, diffs
+    del result, encoder
+
+    batches = list(index_iterator(n, STS_BATCH, rng=np.random.default_rng(2)))[:sum(STS_STEPS)]
+    for impl in ("fused", "flax"):
+        trainer = stsb.build_sts_trainer(dataclasses.replace(cfg, lstm_impl=impl), len(vocab), emb)
+        state = trainer.init_state(0)
+        trainer.bind_device_data(train)
+        for epoch in (0, 1):  # a non-trivial snapshot: the steps calibrate
+            state = trainer.fds_epoch_pass_indexed(
+                state, list(index_iterator(n, STS_BATCH, rng=np.random.default_rng(epoch)))[:2],
+                epoch)
+        host_ms, busy_ms, activities = sts_layout_window(trainer, state, batches, 2)
+        params = sum(p.numel() for p in state.backbone.bilstm.parameters())
+        log(f"STS-B step, {impl} layout ({params} BiLSTM parameters): {host_ms:.2f} ms/step on "
+            f"the host clock ({STS_BATCH * 1e3 / host_ms:.1f} pairs/s), device busy "
+            f"{busy_ms:.2f} ms/step, {activities} device activities/step")
+        del trainer, state
+    shutil.rmtree(root)
+    return launches
+
+
+def data_tools_phase() -> None:
+    """Phase 16(d): the dataset tools on this machine, with no pandas: a
+    small IMDB-WIKI-shaped JPEG corpus (``make_synth_corpus``), an AgeDB
+    directory of its ages (``create_age_meta agedb``), its balanced splits
+    (``make_balanced_splits``), an FDS subset of a NYUD2 CSV
+    (``preprocess_nyud2``) and corpus word vectors from the first 400 pairs
+    of phase 11's train split (``corpus_embeddings``)."""
+    import csv
+
+    from imbalanced_regression_tpu_torch.tools import (
+        corpus_embeddings,
+        create_age_meta,
+        make_balanced_splits,
+        make_synth_corpus,
+        preprocess_nyud2,
+    )
+
+    root = f"{TOOLS_ROOT}/data"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    synth = make_synth_corpus.main(["--root", root, "--name", "synth", "--n", "600", "--val", "0",
+                                    "--test", "0", "--src_size", "64", "--protos", "8"])
+    with open(synth, newline="") as fh:
+        ages = [r["age"] for r in csv.DictReader(fh)]
+    os.makedirs(f"{root}/AgeDB")
+    for i, a in enumerate(ages):
+        open(f"{root}/AgeDB/{i}_Name{i}_{a}_{'mf'[i % 2]}.jpg", "w").close()
+    meta = create_age_meta.main(["agedb", "--data_path", root])
+    splits = make_balanced_splits.main(["--db", "agedb", "--data_path", root, "--max_size", "30"])
+    with open(splits, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    counts = {k: sum(r["split"] == k for r in rows) for k in ("train", "val", "test")}
+    with open(f"{root}/nyu2_train.csv", "w") as fh:
+        fh.writelines(f"data/nyu2_train/s/{i}.jpg,data/nyu2_train/s/{i}.png\n" for i in range(50))
+    subset = preprocess_nyud2.create_fds_subset(root, size=12, seed=0)
+    with open(f"{STS_DIR}/train_new.tsv", encoding="utf-8") as fh:
+        head = list(itertools.islice(fh, 401))  # the header and 400 pairs
+    os.makedirs(f"{root}/sts")
+    with open(f"{root}/sts/train_new.tsv", "w", encoding="utf-8") as fh:
+        fh.writelines(head)
+    vectors = corpus_embeddings.main(["--data_dir", f"{root}/sts", "--out",
+                                      f"{root}/vectors.txt", "--dim", "50"])
+    with open(vectors, encoding="utf-8") as fh:
+        n_vectors = sum(1 for _ in fh)
+    with open(subset, newline="") as fh:
+        n_subset = sum(1 for _ in csv.reader(fh))
+    log(f"dataset tools ({time.time() - t0:.1f}s): synthetic corpus {len(ages)} rows, agedb meta "
+        f"{meta}, balanced splits {counts}, FDS subset {n_subset} rows, {n_vectors} corpus vectors; "
+        f"pandas imported: {'pandas' in sys.modules}")
+    assert len(rows) == len(ages) == 600 and counts["val"] == counts["test"] > 0, counts
+    assert n_subset == 12 and n_vectors > 100, (n_subset, n_vectors)
+    assert "pandas" not in sys.modules, "a tool of the port imported pandas"
+    shutil.rmtree(root)
+
+
+def tools_phase(ck) -> tuple[dict, dict, dict]:
+    """Phase 16: the bench, the sweep, the per-direction STS-B layout and
+    the dataset tools. Returns the launches of the first three."""
+    t0 = time.time()
+    bench = bench_phase(ck)
+    sweep_launches = sweep_phase(ck)
+    sts = sts_flax_phase(ck)
+    data_tools_phase()
+    log(f"tools phase: {time.time() - t0:.1f}s")
+    return bench, sweep_launches, sts
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
                    indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
@@ -1818,7 +2105,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     floor = graph_floor_ms(dev)
-    age_records, depth_records, sts_records, agedb_records = kernel_phase(ck, cal, dev)
+    age_records, bench_records, depth_records, sts_records, agedb_records = kernel_phase(
+        ck, cal, dev)
     age_launches = main_path_phase(ck)
     depth_launches, depth_result = depth_path_phase(ck)
     stats_launches, stats_records = depth_stats_phase(ck, depth_result)
@@ -1843,22 +2131,26 @@ def main(argv=None) -> int:
     serving = serving_phase(ck, stage1, depth_store, sts_argv)
     shutil.rmtree(RESUME_ROOT)
     dp_launches = dp_phase(ck, cal, dev)
+    bench_launches, sweep_launches, sts_flax_launches = tools_phase(ck)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
 
     # launches by phase: the age shape's records count phases 4, 8, 9,
-    # 13's legs (batch 64) and 15's ranks (64 rows each), the depth shape's
-    # phases 5, 6 (K4) and 10, the STS-B shape's 11 and 12, the AgeDB
+    # 13's legs (batch 64), 15's ranks (64 rows each) and 16's sweep, the
+    # bench batch's 16's bench, the depth shape's phases 5, 6 (K4) and 10,
+    # the STS-B shape's 11, 12 and 16's per-direction run, the AgeDB
     # batch's 13
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
-                  "13": legs_launches, "15": dp_launches}
+                  "13": legs_launches, "15": dp_launches, "16": sweep_launches}
+    bench_phases = {"16": bench_launches}
     depth_phases = {"5": depth_launches, "6": stats_launches, "10": depth_resume_launches}
-    sts_phases = {"11": sts_launches, "12": sts_resume_launches}
+    sts_phases = {"11": sts_launches, "12": sts_resume_launches, "16": sts_flax_launches}
     agedb_phases = {"13": agedb_launches}
     kernels = []
-    for records, phases in ((age_records, age_phases), (depth_records, depth_phases),
-                            (sts_records, sts_phases), (agedb_records, agedb_phases)):
+    for records, phases in ((age_records, age_phases), (bench_records, bench_phases),
+                            (depth_records, depth_phases), (sts_records, sts_phases),
+                            (agedb_records, agedb_phases)):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
             by_phase = {p: n.get(name, 0) for p, n in phases.items()}

@@ -29,7 +29,14 @@ two R-trunk convs); inside an ``UpProjection``, ``Conv_0..2``/
 
 The STS-B pair encoder (:func:`stsb_from_flax`) maps ``embed.embedding``,
 ``highway/Dense_{i}``, ``bilstm/input_proj_{l}`` and
-``bilstm/recurrent_kernel_{l}`` onto the same names.
+``bilstm/recurrent_kernel_{l}`` (the fused layout) onto the same names. The
+per-direction layout's cells, ``bilstm/OptimizedLSTMCell_{k}`` (or
+``bilstm/RNN_{k}/cell``, where a Flax version names the cell inside its
+``nn.RNN``), are created forward then backward a layer, so cell ``k`` is
+layer ``k // 2``, direction ``k % 2``; its gate kernels ``i{i,f,g,o}`` and
+``h{i,f,g,o}`` (with the biases) are concatenated in gate order into
+``bilstm.input_kernels_{l}``, ``recurrent_kernels_{l}`` and
+``recurrent_biases_{l}`` [2, ...].
 
 :func:`from_torchvision_resnet` takes a torchvision-format ResNet state dict
 (the ImageNet weights the NYUD2 reference loads into its encoder); the
@@ -128,14 +135,37 @@ def depth_from_flax(variables_np: dict | None, head_params_np: dict | None = Non
     return out
 
 
+_CELL = re.compile(r"(OptimizedLSTMCell|RNN)_(\d+)")
+_GATES = "ifgo"
+
+
+def _per_direction_cells(cells: dict) -> dict:
+    """Flax ``OptimizedLSTMCell`` params by creation index ``k`` (layer
+    ``k // 2``, forward then backward) → the per-direction ``BiLSTM``
+    state dict."""
+    if sorted(cells) != list(range(len(cells))) or len(cells) % 2:
+        raise KeyError(f"per-direction BiLSTM cells {sorted(cells)}: not two a layer")
+    sd = {}
+    for layer in range(len(cells) // 2):
+        pair = [cells[2 * layer], cells[2 * layer + 1]]
+        cat = lambda c, k: np.concatenate([np.asarray(c[f"{k}{g}"]["kernel"])  # noqa: E731
+                                           for g in _GATES], axis=-1)
+        sd[f"bilstm.input_kernels_{layer}"] = _t(np.stack([cat(c, "i") for c in pair]))
+        sd[f"bilstm.recurrent_kernels_{layer}"] = _t(np.stack([cat(c, "h") for c in pair]))
+        sd[f"bilstm.recurrent_biases_{layer}"] = _t(np.stack(
+            [np.concatenate([np.asarray(c[f"h{g}"]["bias"]) for g in _GATES]) for c in pair]))
+    return sd
+
+
 def stsb_from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> dict:
     """Convert a Flax ``PairBiLSTMEncoder`` variables tree (``{"params":
-    {"embed", "highway", "bilstm"}}``, the fused BiLSTM layout) and the
+    {"embed", "highway", "bilstm"}}``, in either BiLSTM layout) and the
     ``RegressionHead`` params into ``{"backbone": state_dict, "head":
-    state_dict}`` for :class:`models.bilstm_pair.PairBiLSTMEncoder` and
-    :class:`models.resnet.RegressionHead`; either input may be None. The
-    recurrent kernels keep Flax's [H, 4H] layout (the port computes ``h @
-    W``)."""
+    state_dict}`` for :class:`models.bilstm_pair.PairBiLSTMEncoder` (with
+    the matching ``lstm_impl``) and :class:`models.resnet.RegressionHead`;
+    either input may be None. The recurrent kernels keep Flax's [H, 4H]
+    layout (the port computes ``h @ W``). A ``bilstm`` key of neither layout
+    raises ``KeyError``."""
     out = {}
     if variables_np is not None:
         params = variables_np["params"]
@@ -144,15 +174,19 @@ def stsb_from_flax(variables_np: dict | None, head_params_np: dict | None = None
             i = int(name.removeprefix("Dense_"))
             sd[f"highway.layers.{i}.weight"] = _t(np.asarray(dense["kernel"]).T)
             sd[f"highway.layers.{i}.bias"] = _t(dense["bias"])
+        cells = {}
         for name, p in params["bilstm"].items():
+            cell = _CELL.fullmatch(name)
             if name.startswith("input_proj_"):
                 sd[f"bilstm.{name}.weight"] = _t(np.asarray(p["kernel"]).T)
                 sd[f"bilstm.{name}.bias"] = _t(p["bias"])
             elif name.startswith("recurrent_kernel_"):
                 sd[f"bilstm.{name}"] = _t(p)
+            elif cell:
+                cells[int(cell.group(2))] = p["cell"] if cell.group(1) == "RNN" else p
             else:
-                raise KeyError(f"not a fused BiLSTM parameter: {name!r} (the 'flax' "
-                               "per-direction layout is not ported)")
+                raise KeyError(f"not a BiLSTM parameter of either layout: {name!r}")
+        sd.update(_per_direction_cells(cells))
         out["backbone"] = sd
     if head_params_np is not None:
         out["head"] = from_flax(None, head_params_np)["head"]

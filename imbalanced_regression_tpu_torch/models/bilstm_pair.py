@@ -8,7 +8,11 @@ LSTM (``d_hid`` = 1500 a direction) → masked max-pool → pair features
 :class:`models.resnet.RegressionHead`, so FDS calibrates the pair embedding
 between the two.
 
-The recurrence is the JAX ``FusedBiLSTM``'s, not ``nn.LSTM``'s:
+Two layouts of the LSTM, as in the JAX package (``lstm_impl``): ``"fused"``
+(:class:`FusedBiLSTM`, the default) and ``"flax"`` (:class:`BiLSTM`, the
+per-direction layout of the JAX package's checkpoints written before its
+round 4). The fused recurrence is the JAX ``FusedBiLSTM``'s, not
+``nn.LSTM``'s:
 
 - the input projection of every time step is one product ``[2B·L, D] x
   [D, 4H]`` before the loop; only ``h @ W_h`` runs step by step;
@@ -20,6 +24,10 @@ The recurrence is the JAX ``FusedBiLSTM``'s, not ``nn.LSTM``'s:
 - gates ``xw_t + bf16(h) @ bf16(W_h)`` are summed in the module dtype (bf16
   at full width) and cast to float32, gate order i, f, g, o; the cell and
   hidden states stay float32.
+
+:class:`BiLSTM` keeps a weight set per direction and Flax's
+``OptimizedLSTMCell`` numerics (below). Neither layout runs ``nn.LSTM``:
+cuDNN's packed-sequence path adds a second bias, another parameterisation.
 
 Parameters are float32 and cast to the module dtype where they are used,
 as Flax's ``dtype=bf16, param_dtype=f32``. Dropout (of the embeddings,
@@ -36,7 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from imbalanced_regression_tpu_torch.models.resnet import dense_reset_
+from imbalanced_regression_tpu_torch.models.resnet import dense_reset_, lecun_normal_
 from imbalanced_regression_tpu_torch.parallel import mesh as dp
 
 
@@ -149,15 +157,98 @@ class FusedBiLSTM(nn.Module):
         return x
 
 
+class BiLSTM(nn.Module):
+    """Stacked bidirectional LSTM with a weight set per direction: the JAX
+    package's ``BiLSTM`` (``lstm_impl="flax"``), two
+    ``nn.RNN(nn.OptimizedLSTMCell)`` a layer, the backward one run with
+    ``reverse=True, keep_order=True, seq_lengths=lengths``.
+
+    Flax's cell, read from its source (flax 0.12): the input kernels ``ii,
+    if, ig, io`` [D, H] have no bias, the recurrent kernels ``hi, hf, hg,
+    ho`` [H, H] carry the bias; gate order i, f, g, o. A step computes, in
+    the module dtype, ``(bf16(h) @ W_h + b) + bf16(x_t) @ W_i``, the gate
+    nonlinearities and ``i * g``; the carry starts as float32 zeros (the
+    cell's ``param_dtype``), so ``c = f * c + i * g`` and ``h = o *
+    tanh(c)`` are float32, and so is the output [B, L, 2H].
+
+    Layer ``l`` holds both directions stacked (0 forward, 1 backward):
+    ``input_kernels_{l}`` [2, D, 4H], ``recurrent_kernels_{l}`` [2, H, 4H],
+    ``recurrent_biases_{l}`` [2, 4H], the four gates side by side. As in
+    :class:`FusedBiLSTM`, the input projections of every step are one
+    product before the loop and the backward direction runs on the packed
+    reversal (:func:`flip_padded`); the two directions step together as one
+    batched product a step. On the valid positions this equals Flax's
+    reversal, which also reverses the padding."""
+
+    def __init__(self, d_in: int, hidden_size: int, n_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.n_layers = n_layers
+        self.dtype = dtype
+        h = hidden_size
+        for layer in range(n_layers):
+            width = d_in if layer == 0 else 2 * h
+            self.register_parameter(f"input_kernels_{layer}",
+                                    nn.Parameter(torch.empty(2, width, 4 * h)))
+            self.register_parameter(f"recurrent_kernels_{layer}",
+                                    nn.Parameter(torch.empty(2, h, 4 * h)))
+            self.register_parameter(f"recurrent_biases_{layer}",
+                                    nn.Parameter(torch.empty(2, 4 * h)))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The cell's initializers: lecun-normal input kernels (fan-in D, as
+        each gate's [D, H] block has), an orthogonal [H, H] block a gate
+        for the recurrent kernels, zero biases."""
+        with torch.no_grad():
+            for layer in range(self.n_layers):
+                wi = getattr(self, f"input_kernels_{layer}")
+                wh = getattr(self, f"recurrent_kernels_{layer}")
+                for direction in range(2):
+                    lecun_normal_(wi[direction], wi.shape[1], generator)
+                    block_orthogonal_(wh[direction], generator)
+                getattr(self, f"recurrent_biases_{layer}").zero_()
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        n_rows, steps = x.shape[:2]
+        h_dim, dt = self.hidden_size, self.dtype
+        for layer in range(self.n_layers):
+            wi = getattr(self, f"input_kernels_{layer}").to(dt)
+            wh = getattr(self, f"recurrent_kernels_{layer}").to(dt)
+            bh = getattr(self, f"recurrent_biases_{layer}").to(dt)[:, None, :]
+            xx = torch.stack([x, flip_padded(x, lengths)]).to(dt)  # [2, B, L, D]
+            xw = torch.bmm(xx.flatten(1, 2), wi).view(2, n_rows, steps, 4 * h_dim)
+            c = torch.zeros(2, n_rows, h_dim, device=x.device)
+            h = torch.zeros_like(c)
+            hs = []
+            for xt in xw.unbind(2):  # unbind: see FusedBiLSTM.forward
+                gates = (torch.bmm(h.to(dt), wh) + bh) + xt
+                i, f, g, o = gates.chunk(4, dim=-1)
+                c = torch.sigmoid(f).float() * c + (torch.sigmoid(i) * torch.tanh(g)).float()
+                h = torch.sigmoid(o).float() * torch.tanh(c)
+                hs.append(h)
+            hs = torch.stack(hs, dim=2)  # [2, B, L, H] float32
+            x = torch.cat([hs[0], flip_padded(hs[1], lengths)], dim=-1)
+        return x
+
+
+LSTM_IMPLS = {"fused": FusedBiLSTM, "flax": BiLSTM}
+
+
 class PairBiLSTMEncoder(nn.Module):
     """Sentence-pair encoder: a batch ``{"tokens1", "mask1", "tokens2",
-    "mask2"}`` to the pair embedding [B, 8·d_hid] in float32."""
+    "mask2"}`` to the pair embedding [B, 8·d_hid] in float32. ``lstm_impl``:
+    ``"fused"`` (:class:`FusedBiLSTM`) or ``"flax"`` (:class:`BiLSTM`)."""
 
     def __init__(self, vocab_size: int, d_word: int = 300, d_hid: int = 1500, n_layers: int = 2,
                  n_highway: int = 0, dropout: float = 0.2, dropout_embs: float = 0.2,
                  train_words: bool = False, embedding_table: np.ndarray | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 lstm_impl: str = "fused", dtype: torch.dtype = torch.float32):
         super().__init__()
+        if lstm_impl not in LSTM_IMPLS:
+            raise ValueError(f"lstm_impl must be one of {sorted(LSTM_IMPLS)}, got {lstm_impl!r}")
+        self.lstm_impl = lstm_impl
         self.dropout = dropout
         self.dropout_embs = dropout_embs
         self.train_words = train_words
@@ -166,14 +257,14 @@ class PairBiLSTMEncoder(nn.Module):
         self.out_features = 8 * d_hid
         self.embed = nn.Embedding(vocab_size, d_word)
         self.highway = Highway(d_word, n_highway, dtype)
-        self.bilstm = FusedBiLSTM(d_word, d_hid, n_layers, dtype)
+        self.bilstm = LSTM_IMPLS[lstm_impl](d_word, d_hid, n_layers, dtype)
         self.reset_parameters()
         self.requires_grad_(True)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """The GloVe table when one was given, else normal(1.0) (Flax
-        ``nn.Embed``'s ``normal(1.0)``); lecun-normal Dense kernels with zero
-        biases; orthogonal recurrent gate blocks."""
+        ``nn.Embed``'s ``normal(1.0)``); lecun-normal Dense and input
+        kernels with zero biases; orthogonal recurrent gate blocks."""
         with torch.no_grad():
             if self.embedding_table is not None:
                 self.embed.weight.copy_(torch.as_tensor(self.embedding_table))

@@ -199,18 +199,22 @@ def _he_normal_fan_out(w: torch.Tensor, generator: torch.Generator | None) -> No
         w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
 
 
-def dense_reset_(linear: nn.Linear, generator: torch.Generator | None) -> None:
-    """Flax ``nn.Dense`` default: lecun-normal kernel (truncated normal at
-    two standard deviations, rescaled to unit variance) and zero bias."""
-    fan_in = linear.weight.shape[1]
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator | None) -> None:
+    """Flax's ``lecun_normal()`` into ``w`` in place: a normal truncated at
+    two standard deviations, rescaled to variance ``1 / fan_in``."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
-        w = torch.empty_like(linear.weight)
         # rejection-free truncation: inverse CDF of a uniform draw
         u = torch.empty_like(w).uniform_(generator=generator)
         lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
-        w = torch.erfinv(lo + u * (hi - lo)) * math.sqrt(2.0) * std
-        linear.weight.copy_(w)
+        w.copy_(torch.erfinv(lo + u * (hi - lo)) * math.sqrt(2.0) * std)
+
+
+def dense_reset_(linear: nn.Linear, generator: torch.Generator | None) -> None:
+    """Flax ``nn.Dense`` default: lecun-normal kernel (truncated normal at
+    two standard deviations, rescaled to unit variance) and zero bias."""
+    lecun_normal_(linear.weight, linear.weight.shape[1], generator)
+    with torch.no_grad():
         linear.bias.zero_()
 
 

@@ -28,9 +28,13 @@ if there is no ``latest``) at the exact batch of the uninterrupted run;
 the tokenization cache. ``--num_devices W`` trains data-parallel on W ranks,
 as in ``tasks/age.py``: each rank gathers its rows of every index batch
 from its own copy of the device-resident split; the interval's train loss
-and statistics are the global batches'. Not ported: ``--lstm_impl flax``
-(the JAX package's pre-round-4 per-direction layout) and a positive
-``--max_steps_per_run`` (which the JAX driver never reads).
+and statistics are the global batches'. ``--lstm_impl flax`` builds the
+per-direction BiLSTM layout (``models/bilstm_pair.py``, the JAX package's
+pre-round-4 checkpoints); a run that restores a checkpoint (``--resume``,
+``--evaluate``, RRT's ``--pretrained``) takes the layout the checkpoint
+was written with, whatever the flag says (:func:`match_ckpt_lstm_impl`).
+Not ported: a positive ``--max_steps_per_run`` (which the JAX driver never
+reads).
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from imbalanced_regression_tpu_torch.tasks.age import (
 )
 from imbalanced_regression_tpu_torch.train import Trainer, TrainerConfig
 from imbalanced_regression_tpu_torch.utils.checkpoint import (
+    checkpoint_lstm_impl,
     checkpoint_meta,
     has_checkpoint,
     load_backbone_params,
@@ -104,7 +109,7 @@ class STSConfig(ExperimentConfig):
     max_vals: int = 100
     patience: int = 10
     eval_model: str = ""
-    lstm_impl: str = "fused"  # 'flax' (the per-direction layout) is not ported
+    lstm_impl: str = "fused"  # 'fused' | 'flax' (the per-direction layout)
 
 
 def parse_sts_config(argv=None) -> STSConfig:
@@ -130,7 +135,6 @@ def parse_sts_config(argv=None) -> STSConfig:
 def check_supported(config: STSConfig) -> None:
     """Raise for the flags whose code paths are not ported."""
     unported = {
-        "--lstm_impl flax (the per-direction BiLSTM layout)": config.lstm_impl != "fused",
         "--max_steps_per_run > 0": config.max_steps_per_run > 0,
     }
     missing = [flag for flag, used in unported.items() if used]
@@ -158,7 +162,8 @@ def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray 
         dropout_embs=config.dropout_embs,
         # without GloVe the embeddings must be learned (models.py:25-31)
         train_words=bool(config.train_words) or not config.glove,
-        embedding_table=emb_table if config.glove else None, dtype=torch.bfloat16,
+        embedding_table=emb_table if config.glove else None, lstm_impl=config.lstm_impl,
+        dtype=torch.bfloat16,
     )
     tcfg = TrainerConfig(
         loss=config.loss, optimizer=config.optimizer, lr=config.lr, momentum=config.momentum,
@@ -168,6 +173,37 @@ def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray 
     )
     return Trainer(encoder, RegressionHead(d_pair), tcfg, fds_config=fds_config,
                    device=config.device, mesh=mesh)
+
+
+def match_ckpt_lstm_impl(config: STSConfig, ckpt_dir: str, which: str) -> STSConfig:
+    """``config`` with the ``lstm_impl`` of the checkpoint about to be
+    restored (``utils.checkpoint.checkpoint_lstm_impl``), logging the
+    override as the JAX driver's ``_match_ckpt_lstm_impl`` does; unchanged
+    where there is no checkpoint or its layout is the configured one."""
+    impl = checkpoint_lstm_impl(ckpt_dir, which)
+    if impl is not None and impl != config.lstm_impl:
+        logger.warning("Checkpoint %s/%s was written with lstm_impl=%r; overriding configured "
+                       "%r to match its parameter layout", ckpt_dir, which, impl,
+                       config.lstm_impl)
+        return dataclasses.replace(config, lstm_impl=impl)
+    return config
+
+
+def match_restored_layout(config: STSConfig, store_dir: str) -> STSConfig:
+    """Probe the checkpoints a run restores, in the JAX driver's order: RRT
+    stage 1's ``best``; under ``--evaluate`` the ``best`` of ``--resume``,
+    ``--eval_model`` or the run's own store; else ``--resume``'s ``latest``,
+    then ``best`` (the full-state restore binds when both are given)."""
+    if config.retrain_fc and config.pretrained:
+        config = match_ckpt_lstm_impl(config, config.pretrained, "best")
+    if config.evaluate:
+        return match_ckpt_lstm_impl(config, config.resume or config.eval_model or store_dir,
+                                    "best")
+    if config.resume:
+        which = next((w for w in ("latest", "best") if has_checkpoint(config.resume, w)), None)
+        if which:
+            config = match_ckpt_lstm_impl(config, config.resume, which)
+    return config
 
 
 def is_new_best(history: list[float]) -> bool:
@@ -229,6 +265,7 @@ def run(config: STSConfig) -> dict:
     # rank 0 writes the tokenization cache before the other ranks read it
     train, val, test, emb, vocab = rank0_first(
         mesh, lambda: load_stsb_datasets(config.data_dir, config))
+    config = match_restored_layout(config, store_dir)
     trainer = build_sts_trainer(config, len(vocab), emb, mesh)
     state = trainer.init_state(config.seed)
     logger.info("Data: train=%d val=%d test=%d, vocabulary %d (device=%s, ranks=%d)",

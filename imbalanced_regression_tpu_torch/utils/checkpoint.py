@@ -111,6 +111,23 @@ def checkpoint_meta(ckpt_dir: str, which: str = "latest") -> dict:
                       mmap=True)["meta"]
 
 
+def checkpoint_lstm_impl(ckpt_dir: str, which: str = "latest") -> str | None:
+    """The BiLSTM layout an STS-B checkpoint was written with, from its
+    backbone's keys: ``"fused"`` (``bilstm.input_proj_0.weight``),
+    ``"flax"`` (``bilstm.input_kernels_0``, the per-direction layout), or
+    None where there is no such checkpoint or it holds neither (the file is
+    memory-mapped, so its tensors are not read)."""
+    if not has_checkpoint(ckpt_dir, which):
+        return None
+    keys = torch.load(checkpoint_path(ckpt_dir, which), map_location="cpu", weights_only=True,
+                      mmap=True)["backbone"].keys()
+    if "bilstm.input_proj_0.weight" in keys:
+        return "fused"
+    if "bilstm.input_kernels_0" in keys:
+        return "flax"
+    return None
+
+
 def restore_checkpoint(ckpt_dir: str, state, which: str = "latest"):
     """Load a checkpoint into ``state`` (modules, optimizer, FDS state, step,
     generator) in place; returns ``(state, epoch, best_loss)``. The state

@@ -315,11 +315,11 @@ def test_kernels_at_sts_shape(cuda_device):
     torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5 * float(pq.abs().max()))
 
 
-def _sts_encoder(dtype):
+def _sts_encoder(dtype, lstm_impl="fused"):
     from imbalanced_regression_tpu_torch.models.bilstm_pair import PairBiLSTMEncoder
 
     enc = PairBiLSTMEncoder(40, d_word=16, d_hid=24, n_layers=2, n_highway=1, train_words=True,
-                            dtype=dtype)
+                            lstm_impl=lstm_impl, dtype=dtype)
     enc.reset_parameters(torch.Generator().manual_seed(0))
     return enc.eval()
 
@@ -344,10 +344,22 @@ def test_pair_encoder_on_card_matches_cpu(cuda_device, dtype, tol):
     largest magnitude in float32 and within 2^-6 in bf16; each gradient
     within 1e-4 (float32) or 2^-4 (bf16, forty bf16 rounds of the
     recurrence on each side, in other summation orders) of its largest."""
+    _hold_encoder_on_card(cuda_device, dtype, tol, "fused")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+def test_per_direction_pair_encoder_on_card_matches_cpu(cuda_device, dtype, tol):
+    """The same for the per-direction BiLSTM layout (``lstm_impl="flax"``)."""
+    _hold_encoder_on_card(cuda_device, dtype, tol, "flax")
+
+
+def _hold_encoder_on_card(cuda_device, dtype, tol, lstm_impl):
     from imbalanced_regression_tpu_torch.train import set_numerics
 
     set_numerics()
-    cpu, card = _sts_encoder(dtype), _sts_encoder(dtype).to(cuda_device)
+    cpu = _sts_encoder(dtype, lstm_impl)
+    card = _sts_encoder(dtype, lstm_impl).to(cuda_device)
     outs = []
     for mod, dev in ((cpu, "cpu"), (card, cuda_device)):
         out = mod(_sts_batch(dev))

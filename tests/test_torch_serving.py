@@ -130,13 +130,13 @@ def _nyud2():
     return jtrainer, jstate, make, sd, batch["input"], lambda want: {"rtol": 1e-3, "atol": 1e-3}
 
 
-def _stsb():
-    """A float32 pair encoder (one BiLSTM layer, d_hid 16) and head, one
-    MSE step on targets / 5; served on a dict with columns of 9 and 7
-    tokens."""
+def _stsb(lstm_impl="fused"):
+    """A float32 pair encoder (one BiLSTM layer, d_hid 16, in the
+    ``lstm_impl`` layout) and head, one MSE step on targets / 5; served on
+    a dict with columns of 9 and 7 tokens."""
     jtrainer = JTrainer(
         JEncoder(vocab_size=STS_VOCAB, d_word=8, d_hid=16, n_layers=1, dropout=0.0,
-                 dropout_embs=0.0, train_words=True), JHead(),
+                 dropout_embs=0.0, train_words=True, lstm_impl=lstm_impl), JHead(),
         JTrainerConfig(loss="mse", lr=1e-2, target_scale=5.0, schedule=()), mesh=create_mesh(1))
     rng = np.random.default_rng(0)
     inp = pair_input(rng, 4, 9, 7, STS_VOCAB)
@@ -146,14 +146,15 @@ def _stsb():
     sd = stsb_from_flax(_np({"params": jstate.params["backbone"]}), _np(jstate.params["head"]))
     make = lambda: Trainer(  # noqa: E731
         PairBiLSTMEncoder(STS_VOCAB, d_word=8, d_hid=16, n_layers=1, dropout=0.0,
-                          dropout_embs=0.0, train_words=True),
+                          dropout_embs=0.0, train_words=True, lstm_impl=lstm_impl),
         RegressionHead(8 * 16), TrainerConfig(loss="mse"), device="cpu")
     # the float32 encoder's tolerance in tests/test_torch_stsb_model.py
     return jtrainer, jstate, make, sd, inp, lambda want: {
         "rtol": 1e-5, "atol": 1e-5 * float(np.abs(want).max())}
 
 
-BUILDERS = {"age": _age, "nyud2": _nyud2, "stsb": _stsb}
+# the per-direction BiLSTM layout (lstm_impl="flax") freezes as the fused one does
+BUILDERS = {"age": _age, "nyud2": _nyud2, "stsb": _stsb, "stsb_flax": partial(_stsb, "flax")}
 
 
 @pytest.fixture(scope="module")
@@ -192,13 +193,14 @@ def _rows(x, n):
     return {k: v[:n] for k, v in x.items()} if isinstance(x, dict) else x[:n]
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", MODELS + ["stsb_flax"])
 def test_predictor_matches_jax_and_predict_batch(built, name):
     m = built(name)
     trainer, state = m.port()
     blob = export_predictor(trainer, state, m.x, platforms=("cpu",))
     # the signature is kept, the sample itself is not shipped
-    assert not any(leaf.tobytes() in blob for leaf in (m.x.values() if name == "stsb" else [m.x]))
+    sts = name.startswith("stsb")
+    assert not any(leaf.tobytes() in blob for leaf in (m.x.values() if sts else [m.x]))
     predict = load_predictor(blob)
     got = predict(m.x)
     assert got.shape == m.jax_out.shape and got.dtype == np.float32
@@ -206,7 +208,7 @@ def test_predictor_matches_jax_and_predict_batch(built, name):
     want = trainer.predict_batch(state, {"input": m.x, "target": _target(m.x)})
     np.testing.assert_array_equal(got, want)
     assert predict.platforms == ("cpu",) and predict.device == torch.device("cpu")
-    if name == "stsb":
+    if sts:
         assert predict.in_shape is None
         assert [a.shape for a in predict.data_avals] == [(4, 9), (4, 7), (4, 9), (4, 7)]
     else:

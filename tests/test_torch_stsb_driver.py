@@ -5,7 +5,11 @@ uninterrupted run (the same torch thread count on both sides);
 ``--evaluate``; RRT stage 2 (``--retrain_fc --pretrained``: the encoder
 stays bit-equal to stage 1's best, K2's plain version is never called, the
 FDS statistics are not restored); ``export_predictions`` against the JAX
-function's npz; ``is_new_best`` on ties; the flags it refuses."""
+function's npz; ``is_new_best`` on ties; the flags it refuses. With
+``--lstm_impl flax`` (the per-direction BiLSTM): its checkpoints round-trip
+through a kill and ``--resume``, and the layout is taken from the
+checkpoint, without the flag, on ``--resume``, ``--evaluate`` and RRT
+stage 2 (and a fused checkpoint overrides the flag the other way)."""
 
 import os
 
@@ -18,7 +22,12 @@ from imbalanced_regression_tpu.tasks import stsb as jstsb
 from imbalanced_regression_tpu_torch.fds import fds_init
 from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.tasks import stsb
-from imbalanced_regression_tpu_torch.utils.checkpoint import checkpoint_meta, read_checkpoint
+from imbalanced_regression_tpu_torch.models import bilstm_pair as stsb_model
+from imbalanced_regression_tpu_torch.utils.checkpoint import (
+    checkpoint_lstm_impl,
+    checkpoint_meta,
+    read_checkpoint,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -189,8 +198,7 @@ def test_is_new_best_needs_strict_improvement(history):
     assert stsb.is_new_best(history) == jstsb.is_new_best(history)
 
 
-@pytest.mark.parametrize("flag,value", [("--lstm_impl", "flax"), ("--num_devices", "2"),
-                                        ("--max_steps_per_run", "5")])
+@pytest.mark.parametrize("flag,value", [("--num_devices", "2"), ("--max_steps_per_run", "5")])
 def test_refuses_unported_flags(data_dir, tmp_path, flag, value):
     """Data parallelism is ported (``tests/test_torch_parallel.py``): what
     ``--num_devices 2`` still refuses, before any data is read or any rank
@@ -218,3 +226,108 @@ def test_config_matches_jax():
                  "d_word", "n_layers_enc", "max_seq_len", "max_grad_norm", "val_interval",
                  "patience", "max_vals", "dropout", "dropout_embs", "glove", "huber_beta"):
         assert getattr(ours, name) == getattr(theirs, name), name
+
+
+@pytest.fixture(scope="module")
+def flax_run(data_dir, tmp_path_factory):
+    torch.set_num_threads(2)
+    argv = _argv(data_dir, tmp_path_factory.mktemp("flax"), "--n_layers_enc", "2")
+    return argv, stsb.main(argv + ["--lstm_impl", "flax"])
+
+
+def test_flax_layout_trains_and_checkpoints(flax_run):
+    argv, result = flax_run
+    encoder = result["trainer"].backbone
+    assert encoder.lstm_impl == "flax" and isinstance(encoder.bilstm, stsb_model.BiLSTM)
+    assert all(np.isfinite(c["train_loss"]) for c in result["checks"])
+    assert checkpoint_lstm_impl(_store(argv), "best") == "flax"
+    sd = read_checkpoint(_store(argv), "latest")["backbone"]
+    assert {"bilstm.input_kernels_1", "bilstm.recurrent_biases_1"} <= sd.keys()
+    assert not any(k.startswith("bilstm.input_proj_") for k in sd)
+
+
+def test_flax_layout_resume_and_evaluate_take_the_layout_from_the_checkpoint(
+        flax_run, data_dir, tmp_path, monkeypatch):
+    """Killed after check 2's checkpoint with ``--lstm_impl flax``, resumed
+    without the flag: bit-equal to the uninterrupted run; then
+    ``--evaluate`` without the flag reproduces its test metrics."""
+    full_argv, full = flax_run
+    argv = _argv(data_dir, tmp_path / "part", "--n_layers_enc", "2")
+    real_save, saves = stsb.save_checkpoint, []
+
+    def dying_save(*args, **kwargs):
+        real_save(*args, **kwargs)
+        saves.append(1)
+        if len(saves) == 2:
+            raise Killed
+
+    monkeypatch.setattr(stsb, "save_checkpoint", dying_save)
+    with pytest.raises(Killed):
+        stsb.main(argv + ["--lstm_impl", "flax"])
+    monkeypatch.setattr(stsb, "save_checkpoint", real_save)
+    # the driver's logging setup replaces the root handlers: record the
+    # override at the logger
+    warnings = []
+    monkeypatch.setattr(stsb.logger, "warning", lambda msg, *a: warnings.append(msg % a))
+    resumed = stsb.main(argv + ["--resume", _store(argv)])
+    assert len(warnings) == 1 and "latest was written with lstm_impl='flax'" in warnings[0]
+    assert resumed["trainer"].backbone.lstm_impl == "flax"
+    for key in ("test", "best_val_mse", "iterations", "val_history"):
+        _assert_equal(resumed[key], full[key], key)
+    for which in ("latest", "best"):
+        _assert_equal(read_checkpoint(_store(argv), which),
+                      read_checkpoint(_store(full_argv), which), which)
+    evaluated = stsb.main(argv + ["--evaluate", "--resume", _store(argv)])
+    assert len(warnings) == 2 and "best was written" in warnings[1]
+    assert "overriding configured 'fused'" in warnings[1]
+    _assert_equal(evaluated["test"], full["test"])
+    # the run's own store dir, by default
+    _assert_equal(stsb.main(full_argv + ["--evaluate"])["test"], full["test"])
+
+
+def test_flax_layout_rrt_stage_two_and_fused_override(flax_run, full_run, data_dir, tmp_path):
+    """RRT stage 2 on a flax-layout stage 1 without the flag trains the head
+    on stage 1's per-direction encoder; ``--evaluate --lstm_impl flax`` on a
+    fused store builds the fused layout."""
+    stage1_argv, _ = flax_run
+    stage1 = _store(stage1_argv)
+    argv = _argv(data_dir, tmp_path / "rrt", "--n_layers_enc", "2", "--retrain_fc",
+                 "--pretrained", stage1, "--max_vals", "2")
+    result = stsb.main(argv)
+    assert result["trainer"].backbone.lstm_impl == "flax"
+    _assert_equal(read_checkpoint(_store(argv), "best")["backbone"],
+                  read_checkpoint(stage1, "best")["backbone"])
+    fused_argv, fused = full_run
+    evaluated = stsb.main(fused_argv + ["--evaluate", "--lstm_impl", "flax"])
+    _assert_equal(evaluated["test"], fused["test"])
+
+
+@pytest.mark.parametrize("which", ["latest", "best"])
+def test_match_ckpt_lstm_impl_probes(flax_run, tmp_path, which):
+    """A missing checkpoint leaves the flag; a store with only ``best`` is
+    probed at ``best`` on ``--resume``, as the JAX driver does."""
+    argv, _ = flax_run
+    store = _store(argv)
+    cfg = stsb.parse_sts_config(argv)
+    assert stsb.match_ckpt_lstm_impl(cfg, str(tmp_path), which).lstm_impl == "fused"
+    assert stsb.match_ckpt_lstm_impl(cfg, store, which).lstm_impl == "flax"
+    only_best = tmp_path / "only_best"
+    only_best.mkdir()
+    os.link(os.path.join(store, "best.pt"), only_best / "best.pt")
+    resume_cfg = stsb.parse_sts_config(argv + ["--resume", str(only_best)])
+    assert stsb.match_restored_layout(resume_cfg, str(tmp_path)).lstm_impl == "flax"
+
+
+def test_flax_layout_store_freezes_bit_equal(flax_run):
+    """``serving.export_predictor`` freezes the flax-layout run's restored
+    best state; the artifact serves ``predict_batch``'s predictions."""
+    from torch_stsb_tiny import pair_input
+
+    from imbalanced_regression_tpu_torch.serving import export_predictor, load_predictor
+
+    _, result = flax_run
+    trainer, state = result["trainer"], result["state"]
+    x = pair_input(np.random.default_rng(0), 4, 10, 8, state.backbone.embed.num_embeddings)
+    predict = load_predictor(export_predictor(trainer, state, x, platforms=("cpu",)))
+    want = trainer.predict_batch(state, {"input": x, "target": np.zeros((4, 1), np.float32)})
+    np.testing.assert_array_equal(predict(x), want)

@@ -188,6 +188,8 @@ def test_dropout_draws_from_the_generator():
 
 
 def test_converter_refuses_the_per_direction_layout():
-    with pytest.raises(KeyError, match="not ported"):
+    """The per-direction layout converts (``tests/test_torch_stsb_flax_layout.py``);
+    a ``bilstm`` key of neither layout is refused."""
+    with pytest.raises(KeyError, match="not a BiLSTM parameter of either layout"):
         stsb_from_flax({"params": {"embed": {"embedding": np.zeros((2, 3))},
-                                   "bilstm": {"RNN_0": {}}}})
+                                   "bilstm": {"LSTMCell_0": {}}}})
