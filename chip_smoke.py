@@ -131,6 +131,12 @@ a bucket whose v1 sums to under 1e-10) and times them there; K1 and K2
 bit-equal to their plain versions; and at phase 13's batch (N = 256, D =
 2048, B = 97: AgeDB's buckets 3-99).
 
+Phase 2 also holds K1 and K2 bit-equal to their plain versions at the
+boundary of ``calibrate_plan``'s two forms (``calibrate_regimes``: the
+factored form's least rows and one row short, at D = 128 and at D = 130,
+the scalar path). Every K1/K2 record is timed with the statistics cold
+(``cold_tables``), as a train step finds them; x stays warm.
+
 Phase 2 also times the per-node floor of a replayed CUDA graph (a
 one-element ``add_``), which bounds the device time of a kernel at the age
 path's tiny shapes from below. Phases 4-6 also check that K3 ran the
@@ -167,6 +173,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+L2_BYTES = 50e6  # H100 L2 cache, NVIDIA data sheet
+MAX_COLD_COPIES = 64  # copies of the calibrate statistics that cold_tables cycles
 AGE = (2048, 100)  # (D, B): ResNet-50 encoding width, age buckets
 MAIN_ARGV = ["--synthetic_size", "640", "--img_size", "224", "--batch_size", "64",
              "--epoch", "3", "--fds", "--lds", "--reweight", "sqrt_inv", "--save_ckpt", "0",
@@ -344,10 +352,24 @@ def calibrate_bytes(x_elt: int, e, ok, v1sum, d: int, tables: int) -> tuple[floa
 
 
 def timed(kernel, plain, library, nbytes: float, flops: float, err: float, shape: str,
-          iters: int = 50, bf16_flops: float = 0.0) -> dict:
-    return dict(max_abs_err=err, ms=time_ms(kernel, iters), device_ms=graph_ms(kernel),
+          iters: int = 50, bf16_flops: float = 0.0, graph_iters: int = 20) -> dict:
+    return dict(max_abs_err=err, ms=time_ms(kernel, iters), device_ms=graph_ms(kernel, graph_iters),
                 plain_ms=time_ms(plain, iters), library_ms=time_ms(library, iters) if library else None,
                 bound=bound(nbytes, flops, bf16_flops), bytes=nbytes, shape=shape)
+
+
+def cold_tables(fn, tables, iters: int = 20):
+    """``fn(*tables)`` on distinct copies of the statistics ``tables``,
+    one copy a call in turn: enough copies that a turn over them touches
+    1.5 times the L2 cache (at most ``MAX_COLD_COPIES``), so each call finds
+    its tables out of L2, as in a train step, where a whole forward and
+    backward runs between two calibrate calls. The other inputs stay warm,
+    as the step leaves them. Returns the callable and the calls a graph
+    captures: at least ``iters``, a whole number of turns."""
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    k = min(MAX_COLD_COPIES, math.ceil(1.5 * L2_BYTES / nbytes))
+    copies = itertools.cycle([tuple(t.clone() for t in tables) for _ in range(k)])
+    return (lambda: fn(*next(copies))), k * math.ceil(iters / k)
 
 
 def shape_tag(n: int, d: int, b: int) -> str:
@@ -356,10 +378,11 @@ def shape_tag(n: int, d: int, b: int) -> str:
 
 def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bool,
                     iters: int = 50, sts: bool = False) -> dict:
-    """K1 and K2 against their plain versions at ``n`` rows in each of
-    ``modes`` ((mode, clips) pairs); with ``record``, their times and bounds
-    in the first mode too. ``sts``: the STS-B corner cases, and float32 K1
-    and K2 bit-equal to their plain versions."""
+    """K1 (float32 and bf16 x) and K2 bit-equal to their plain versions at
+    ``n`` rows in each of ``modes`` ((mode, clips) pairs), K2 also within
+    1e-6 of autograd through the plain K1; with ``record``, their times
+    (statistics cold, ``cold_tables``) and bounds in the first mode too.
+    ``sts``: the STS-B corner cases."""
     results = {}
     x, e, ok, stats, v1sum = calibrate_inputs(gen, dev, n, d, b, sts_corners=sts)
     # ---- K1 forward, float32 and bf16 input
@@ -370,18 +393,20 @@ def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bo
             torch.cuda.synchronize()
             err = max_err(got, want)
             log(f"K1 calibrate_forward N={n} D={d} mode={mode} x={xs.dtype}: max_abs_err {err:.3e}")
-            # IEEE division/sqrt and unfused mul/add, same order: 1e-6
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-            if sts and xs.dtype == torch.float32:
-                assert torch.equal(got, want), "K1 is not bit-equal to its plain version"
+            # IEEE division and square root, unfused mul/add in the plain version's order
+            assert torch.equal(got, want), "K1 is not bit-equal to its plain version"
     mode, clips = modes[0]
     if record:
         args = (x, e, ok, *stats, v1sum, *clips, mode)
         nbytes, elems = calibrate_bytes(4, e, ok, v1sum, d, tables=4)
+        kernel, graph_iters = cold_tables(
+            lambda *t: ck.calibrate_forward(x, e, ok, *t, *clips, mode), (*stats, v1sum))
+        plain, _ = cold_tables(lambda *t: cal.calibrate_indexed(x, e, ok, *t, *clips, mode),
+                               (*stats, v1sum))
         results["calibrate_forward"] = timed(
-            lambda: ck.calibrate_forward(*args), lambda: cal.calibrate_indexed(*args),
-            None, nbytes, 8 * elems, max_err(ck.calibrate_forward(*args), cal.calibrate_indexed(*args)),
-            shape_tag(n, d, b), iters)
+            kernel, plain, None, nbytes, 8 * elems,
+            max_err(ck.calibrate_forward(*args), cal.calibrate_indexed(*args)),
+            shape_tag(n, d, b), iters, graph_iters=graph_iters)
 
     # ---- K2 backward against autograd of the plain version
     g = torch.randn(n, d, generator=gen, device=dev)
@@ -393,18 +418,59 @@ def check_calibrate(ck, cal, gen, dev, n: int, d: int, b: int, modes, record: bo
         torch.cuda.synchronize()
         log(f"K2 calibrate_backward N={n} D={d} mode={mode_}: max_abs_err {max_err(got, want):.3e}")
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-        if sts:
-            plain = cal.calibrate_indexed_grad(g, e, ok, stats[1], stats[3], v1sum, *clips_, mode_)
-            assert torch.equal(got, plain), "K2 is not bit-equal to its plain version"
+        plain = cal.calibrate_indexed_grad(g, e, ok, stats[1], stats[3], v1sum, *clips_, mode_)
+        assert torch.equal(got, plain), "K2 is not bit-equal to its plain version"
     if record:
         bargs = (g, e, ok, stats[1], stats[3], v1sum, *clips, mode)
         nbytes, elems = calibrate_bytes(4, e, ok, v1sum, d, tables=2)
+        tables = (stats[1], stats[3], v1sum)
+        kernel, graph_iters = cold_tables(
+            lambda *t: ck.calibrate_backward(g, e, ok, *t, *clips, mode), tables)
+        plain, _ = cold_tables(lambda *t: cal.calibrate_indexed_grad(g, e, ok, *t, *clips, mode),
+                               tables)
         results["calibrate_backward"] = timed(
-            lambda: ck.calibrate_backward(*bargs), lambda: cal.calibrate_indexed_grad(*bargs),
-            None, nbytes, 6 * elems,
+            kernel, plain, None, nbytes, 6 * elems,
             max_err(ck.calibrate_backward(*bargs), cal.calibrate_indexed_grad(*bargs)),
-            shape_tag(n, d, b), iters)
+            shape_tag(n, d, b), iters, graph_iters=graph_iters)
     return results
+
+
+def calibrate_regimes(ck, sm: int) -> list:
+    """K1/K2's cases at the boundary of ``calibrate_plan``'s two forms of K1
+    (K2 runs its direct form at both), as (name, D, B, N, factored): the
+    factored form's least rows (plus 5, so no multiple of a block's rows)
+    and one row short of them, at D = 128 and at D = 130 (the scalar
+    path)."""
+    cases = []
+    for d, b in ((128, 93), (130, 12)):
+        least = ck.FACTORED_ROWS_PER_BUCKET * b * sm
+        cases += [(f"D={d}, factored form", d, b, least + 5, True),
+                  (f"D={d}, direct form one row short", d, b, least - 1, False)]
+    return cases
+
+
+def check_calibrate_regimes(ck, cal, gen, dev) -> None:
+    """K1 (float32 and bf16 x) and K2 bit-equal to their plain versions in
+    both modes at each of ``calibrate_regimes``, with the corner cases of
+    ``calibrate_inputs``; the plan checked to take the form named."""
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, d, b, n, factored in calibrate_regimes(ck, sm):
+        plan = ck.calibrate_plan(n, d, b, sm)
+        assert plan.factored == factored and not ck.calibrate_plan(n, d, b, sm, True).factored, \
+            (name, plan)
+        x, e, ok, stats, v1sum = calibrate_inputs(gen, dev, n, d, b)
+        g = torch.randn(n, d, generator=gen, device=dev)
+        for mode, clips in (("nonzero", (0.1, 10.0)), ("positive", (0.5, 2.0))):
+            for xs in (x, x.to(torch.bfloat16)):
+                args = (xs, e, ok, *stats, v1sum, *clips, mode)
+                assert torch.equal(ck.calibrate_forward(*args), cal.calibrate_indexed(*args)), \
+                    f"K1 {name} {mode} {xs.dtype}: not bit-equal to its plain version"
+            bargs = (g, e, ok, stats[1], stats[3], v1sum, *clips, mode)
+            assert torch.equal(ck.calibrate_backward(*bargs), cal.calibrate_indexed_grad(*bargs)), \
+                f"K2 {name} {mode}: not bit-equal to its plain version"
+        torch.cuda.synchronize()
+        log(f"K1/K2 {name}: N={n} D={d} B={b}, plan {plan}: bit-equal to the plain versions "
+            f"(both modes, K1 float32 and bf16 x)")
 
 
 def moments_inputs(gen, dev, n: int, d: int, b: int, empty_bucket: bool = False):
@@ -596,6 +662,7 @@ def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict, dict]:
     log_records(depth)
     sts = check_calibrate(ck, cal, gen, dev, STS_BATCH, *STS, [("positive", (0.5, 2.0))],
                           record=True, sts=True)
+    check_calibrate_regimes(ck, cal, gen, dev)
     sts.update(check_moments(ck, gen, dev, STS_BATCH, *STS, record=True,
                              names=("segment_moments",), empty_bucket=True))
     assert ck.moments_plan(STS_BATCH, STS[0], torch.cuda.get_device_properties(0)

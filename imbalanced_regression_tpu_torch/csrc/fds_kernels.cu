@@ -69,93 +69,239 @@ __device__ __forceinline__ void store4(float* __restrict__ p, int rem, const flo
 // Replaces imbalanced_regression_tpu/ops/pallas_kernels.py: _calibrate_kernel
 // (forward, reached through pallas_calibrate) and _calibrate_bwd_kernel (its
 // custom-VJP backward).
-//   forward:  out = mask ? (x - m1[e]) * sqrt(clip(v2[e] / v1[e], lo, hi)) + m2[e] : x
-//   backward: dx  = g * (mask ? sqrt(clip(v2[e] / v1[e], lo, hi)) : 1)
+//   forward:  out = mask ? (x - m1[e]) * s + m2[e] : x
+//   backward: dx  = g * (mask ? s : 1),   s = sqrt(clip(v2[e] / v1[e], lo, hi))
 //   mask = col_ok & (v1sum[e] >= 1e-10) & ok & (0 <= e < B), with
 //   col_ok = v1 != 0 (nonzero mode) or v1 > 0 & v2 >= 0 (positive mode).
 //
-// Bound on the H100: memory. Per element it reads x, writes out and reads
-// the four (two, backward) gathered table values, for ~10 float operations:
-// about 1 operation per byte, far below the card's ~20 float32 operations
-// per byte. At the age slice's shapes (N = 64, D = 2048, B = 100) the whole
-// call moves a few MB, i.e. a few microseconds at 3.35 TB/s, so the launch
-// itself dominates; at the NYUD2 train step's (N = 554,496 pixels, D = 128,
-// B = 93) x in and out are 568 MB, ~0.17 ms.
+// Bound on the H100: memory. Per element the function reads x and writes
+// out, and a few operations; the [B, D] tables are read once. At the NYUD2
+// train step's shape (N = 554,496 pixel rows, D = 128, B = 93) x in and out
+// are 568 MB, ~0.17 ms at 3.35 TB/s; at the age shapes (N = 64-256, D =
+// 2048) the call moves a few MB, and its time is the launch and the
+// latency of its dependent loads.
 //
-// Design: the TPU kernel gathers each sample's bucket rows with a one-hot
-// matmul because the TPU has no dynamic gather. Here each row reads its own
-// e and ok once and loads its table rows directly by index, with 16-byte
-// vector loads along D where D % 4 == 0 and the pointers are aligned. One
-// thread owns four consecutive columns of one row; a 64 x 4 block covers
-// 256 columns of 4 rows, so neighbouring threads touch neighbouring
-// addresses. The grid's x axis walks the row blocks (the NYUD2 step has
-// 138,624 of them, beyond the 65,535 of the y axis). Rows that are gated off copy x through without reading any
-// table. The table rows of popular buckets are re-read by many rows and hit
-// in L2 (the four [100, 2048] tables are 3.3 MB).
-template <typename T, bool VEC, bool BWD>
-__global__ void __launch_bounds__(256) calibrate_kernel(
+// The TPU kernel gathers each sample's bucket rows with a one-hot matmul
+// (the TPU has no dynamic gather). Here each row gathers its bucket's
+// values by index. A thread owns C consecutive columns of one row (C = 4:
+// one 16-byte load, where D % 4 == 0 and the pointers are aligned; else
+// C = 1), and a block is a few rows of a row tile whose threads are the
+// tile's columns (ops/cuda_kernels.py: calibrate_plan): at D = 128 a row is
+// 32 threads and a block 8 rows, with no idle thread. A thread's loads come
+// in two waves: x, e[row] and ok[row]; then, for a row in range with its
+// flag set, its bucket's values, all together.
+//
+// The plan picks one of two forms from the shapes:
+// - direct (K2 at every shape, K1 at small N): calibrate_direct_kernel
+//   gathers v1, v2, v1sum (and, forward, m1 and m2), applies the v1sum and
+//   column guards after the loads, and divides and takes the square root
+//   per element; a row the guards turn off skips the arithmetic.
+// - factored (K1 at large N, where the per-element division and square
+//   root of four gathered values hold back the memory stream):
+//   calibrate_factor_kernel first writes, once per (bucket, column), the
+//   factor s, m1 and m2 into a [3][B][D] scratch table, with the column
+//   and v1sum guards folded in: an entry they turn off holds s = 1, m1 =
+//   +0, m2 = -0, for which (x - m1) * s + m2 gives x bit for bit. Then
+//   calibrate_gather_kernel gathers three values an element, which stay in
+//   L1 (the depth table is 143 KB), and does a subtract, a multiply and an
+//   add. K2's direct form gathers two values and keeps up with the memory
+//   stream as it is.
+//
+// s is the same float32 value whether computed per element or per
+// (bucket, column), so both forms are bit-equal to the plain version
+// (ops/calibrate.py: calibrate_indexed, calibrate_indexed_grad).
+constexpr int kCalibrateThreads = 256;  // a block
+
+template <int C, typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ p, float (&o)[C]) {
+  if constexpr (C == 4) {
+    load4<true>(p, 4, o);
+  } else {
+    o[0] = to_float(p[0]);
+  }
+}
+
+template <int C>
+__device__ __forceinline__ void store_cols(float* __restrict__ p, const float (&o)[C]) {
+  if constexpr (C == 4) {
+    store4<true>(p, 4, o);
+  } else {
+    p[0] = o[0];
+  }
+}
+
+__device__ __forceinline__ bool col_ok(float v1, float v2, int positive) {
+  return positive ? (v1 > 0.f) & (v2 >= 0.f) : v1 != 0.f;
+}
+
+// sqrt(clip(v2 / v1, lo, hi)) with IEEE division and square root, clamped
+// as torch.clamp does: a NaN ratio stays NaN. A column the guard turns off
+// divides by 1, as the plain version does (its result is not used): a zero
+// divisor would send the division down its slow path.
+__device__ __forceinline__ float factor(bool on, float v1, float v2, float lo, float hi) {
+  const float r = __fdiv_rn(v2, on ? v1 : 1.f);
+  return __fsqrt_rn(r < lo ? lo : (r > hi ? hi : r));
+}
+
+template <bool BWD>
+__device__ __forceinline__ float apply(float x, float m1, float s, float m2) {
+  return BWD ? __fmul_rn(x, s) : __fadd_rn(__fmul_rn(__fsub_rn(x, m1), s), m2);
+}
+
+template <typename T, int C, bool BWD>
+__global__ void __launch_bounds__(kCalibrateThreads) calibrate_direct_kernel(
     const T* __restrict__ x, const int* __restrict__ e, const bool* __restrict__ ok,
     const float* __restrict__ m1, const float* __restrict__ v1,
     const float* __restrict__ m2, const float* __restrict__ v2,
     const float* __restrict__ v1sum, float* __restrict__ out,
     int n, int d, int nb, float lo, float hi, int positive) {
   const int row = blockIdx.x * blockDim.y + threadIdx.y;
-  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * 4;
+  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * C;
   if (row >= n || col >= d) return;
-  const int rem = d - col;
   const size_t off = static_cast<size_t>(row) * d + col;
-
-  float xv[4];
-  load4<VEC>(x + off, rem, xv);
-  const int b = e[row];
-  const bool row_on = b >= 0 && b < nb && ok[row] && v1sum[b] >= 1e-10f;
-  if (row_on) {
-    const size_t so = static_cast<size_t>(b) * d + col;
-    float s1[4], s2[4], a1[4], a2[4];
-    load4<VEC>(v1 + so, rem, s1);
-    load4<VEC>(v2 + so, rem, s2);
+  // wave 1: x and the row's bucket and flag
+  float xv[C];
+  load_cols<C>(x + off, xv);
+  const int b = __ldg(e + row);
+  const bool row_in = (b >= 0) & (b < nb) & ok[row];
+  // wave 2, for a row in range with its flag set: v1sum and the table values
+  const size_t so = static_cast<size_t>(row_in ? b : 0) * d + col;
+  float vsum = 0.f;
+  float s1[C] = {}, s2[C] = {}, a1[C] = {}, a2[C] = {};
+  if (row_in) {
+    vsum = __ldg(v1sum + b);
+    load_cols<C>(v1 + so, s1);
+    load_cols<C>(v2 + so, s2);
     if (!BWD) {
-      load4<VEC>(m1 + so, rem, a1);
-      load4<VEC>(m2 + so, rem, a2);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const bool col_ok = positive ? (s1[k] > 0.f && s2[k] >= 0.f) : (s1[k] != 0.f);
-      if (!col_ok) continue;
-      const float r = __fdiv_rn(s2[k], s1[k]);
-      // clamp as torch.clamp does: a NaN ratio stays NaN
-      const float f = r < lo ? lo : (r > hi ? hi : r);
-      const float s = __fsqrt_rn(f);
-      xv[k] = BWD ? __fmul_rn(xv[k], s) : __fadd_rn(__fmul_rn(__fsub_rn(xv[k], a1[k]), s), a2[k]);
+      load_cols<C>(m1 + so, a1);
+      load_cols<C>(m2 + so, a2);
     }
   }
-  store4<VEC>(out + off, rem, xv);
+  if (row_in & (vsum >= 1e-10f)) {  // the same for the threads of a row
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const bool col_on = col_ok(s1[k], s2[k], positive);
+      const float y = apply<BWD>(xv[k], BWD ? 0.f : a1[k], factor(col_on, s1[k], s2[k], lo, hi),
+                                 BWD ? 0.f : a2[k]);
+      xv[k] = col_on ? y : xv[k];
+    }
+  }
+  store_cols<C>(out + off, xv);
+}
+
+// The factored form's table (K1): s [B][D], then m1 and m2 [B][D], the
+// guards folded in. One thread C entries.
+template <int C>
+__global__ void __launch_bounds__(kCalibrateThreads) calibrate_factor_kernel(
+    const float* __restrict__ m1, const float* __restrict__ v1, const float* __restrict__ m2,
+    const float* __restrict__ v2, const float* __restrict__ v1sum, float* __restrict__ table,
+    int d, int nb, float lo, float hi, int positive) {
+  const int entries = nb * d;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) * C;
+  if (i >= entries) return;
+  float s1[C], s2[C], a1[C], a2[C], s[C];
+  load_cols<C>(v1 + i, s1);
+  load_cols<C>(v2 + i, s2);
+  load_cols<C>(m1 + i, a1);
+  load_cols<C>(m2 + i, a2);
+  const bool bucket_on = __ldg(v1sum + i / d) >= 1e-10f;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const bool on = bucket_on & col_ok(s1[k], s2[k], positive);
+    s[k] = on ? factor(on, s1[k], s2[k], lo, hi) : 1.f;
+    a1[k] = on ? a1[k] : 0.f;
+    a2[k] = on ? a2[k] : -0.f;
+  }
+  store_cols<C>(table + i, s);
+  store_cols<C>(table + entries + i, a1);
+  store_cols<C>(table + 2 * entries + i, a2);
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kCalibrateThreads) calibrate_gather_kernel(
+    const T* __restrict__ x, const int* __restrict__ e, const bool* __restrict__ ok,
+    const float* __restrict__ table, float* __restrict__ out, int n, int d, int nb) {
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int col = (blockIdx.y * blockDim.x + threadIdx.x) * C;
+  if (row >= n || col >= d) return;
+  const size_t off = static_cast<size_t>(row) * d + col;
+  // wave 1: x and the row's bucket and flag
+  float xv[C];
+  load_cols<C>(x + off, xv);
+  const int b = __ldg(e + row);
+  const bool row_in = (b >= 0) & (b < nb) & ok[row];
+  // wave 2, for a row in range with its flag set: its bucket's entries
+  if (row_in) {
+    const size_t entries = static_cast<size_t>(nb) * d;
+    const size_t so = static_cast<size_t>(b) * d + col;
+    float s[C], a1[C], a2[C];
+    load_cols<C>(table + so, s);
+    load_cols<C>(table + entries + so, a1);
+    load_cols<C>(table + 2 * entries + so, a2);
+#pragma unroll
+    for (int k = 0; k < C; ++k) xv[k] = apply<false>(xv[k], a1[k], s[k], a2[k]);
+  }
+  store_cols<C>(out + off, xv);
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// The plan (ops/cuda_kernels.py: calibrate_plan): C = cols, a block of
+// block_x x block_y threads, grid_x x grid_y blocks; with a scratch table
+// (K1's factored form, [3][B][D] floats) the factor kernel first. Checked
+// here against the shapes; a plan that does not fit them is refused.
+template <typename T, bool BWD, int C>
+int launch_calibrate_cols(const T* x, const int* e, const bool* ok, const float* m1,
+                          const float* v1, const float* m2, const float* v2,
+                          const float* v1sum, float* out, float* table, int n, int d, int nb,
+                          float lo, float hi, int positive, int block_x, int block_y,
+                          int grid_x, int grid_y, cudaStream_t stream) {
+  if (C == 4) {
+    bool vec = d % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(v1, 16) && aligned(v2, 16) &&
+               aligned(out, 16) && aligned(table, 16);
+    if (!BWD) vec = vec && aligned(m1, 16) && aligned(m2, 16);
+    if (!vec) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (block_x * block_y > kCalibrateThreads || static_cast<long long>(grid_x) * block_y < n ||
+      static_cast<long long>(grid_y) * block_x * C < d)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(grid_x, grid_y), block(block_x, block_y);
+  if constexpr (!BWD) {
+    if (table != nullptr) {  // K1's factored form
+      const int groups = nb * d / C;  // C divides d
+      calibrate_factor_kernel<C><<<(groups + kCalibrateThreads - 1) / kCalibrateThreads,
+                                   kCalibrateThreads, 0, stream>>>(m1, v1, m2, v2, v1sum, table, d,
+                                                                   nb, lo, hi, positive);
+      const int err = static_cast<int>(cudaGetLastError());
+      if (err != 0) return err;
+      calibrate_gather_kernel<T, C><<<grid, block, 0, stream>>>(x, e, ok, table, out, n, d, nb);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  calibrate_direct_kernel<T, C, BWD><<<grid, block, 0, stream>>>(
+      x, e, ok, m1, v1, m2, v2, v1sum, out, n, d, nb, lo, hi, positive);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, bool BWD>
 int launch_calibrate(const T* x, const int* e, const bool* ok, const float* m1,
                      const float* v1, const float* m2, const float* v2,
-                     const float* v1sum, float* out, int n, int d, int nb, float lo,
-                     float hi, int positive, cudaStream_t stream) {
+                     const float* v1sum, float* out, float* table, int n, int d, int nb,
+                     float lo, float hi, int positive, int cols, int block_x, int block_y,
+                     int grid_x, int grid_y, cudaStream_t stream) {
   if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 block(64, 4);
-  // row blocks on x (up to 2^31 - 1; y and z stop at 65,535), column tiles on y
-  const dim3 grid((n + block.y - 1) / block.y, (d + 4 * block.x - 1) / (4 * block.x));
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  bool vec = d % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(v1, 16) &&
-             aligned(v2, 16) && aligned(out, 16);
-  if (!BWD) vec = vec && aligned(m1, 16) && aligned(m2, 16);
-  if (vec)
-    calibrate_kernel<T, true, BWD><<<grid, block, 0, stream>>>(
-        x, e, ok, m1, v1, m2, v2, v1sum, out, n, d, nb, lo, hi, positive);
-  else
-    calibrate_kernel<T, false, BWD><<<grid, block, 0, stream>>>(
-        x, e, ok, m1, v1, m2, v2, v1sum, out, n, d, nb, lo, hi, positive);
-  return static_cast<int>(cudaGetLastError());
+  if (nb < 0 || (nb == 0 && table != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (cols == 4)
+    return launch_calibrate_cols<T, BWD, 4>(x, e, ok, m1, v1, m2, v2, v1sum, out, table, n, d,
+                                            nb, lo, hi, positive, block_x, block_y, grid_x,
+                                            grid_y, stream);
+  if (cols == 1)
+    return launch_calibrate_cols<T, BWD, 1>(x, e, ok, m1, v1, m2, v2, v1sum, out, table, n, d,
+                                            nb, lo, hi, positive, block_x, block_y, grid_x,
+                                            grid_y, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ---------------------------------------------------------------------------
@@ -507,24 +653,30 @@ int launch_moments(const T* f, const int* idx, float* counts, float* sums, float
 
 extern "C" {
 
+// table: scratch for the factored form ([3][nb][d] floats; null: the direct
+// form); then the plan's cols, block_x, block_y, grid_x, grid_y.
 int fds_calibrate_fwd(const void* x, int x_bf16, const int* e, const bool* ok,
                       const float* m1, const float* v1, const float* m2, const float* v2,
-                      const float* v1sum, float* out, int n, int d, int nb, float lo,
-                      float hi, int positive, void* stream) {
+                      const float* v1sum, float* out, float* table, int n, int d, int nb,
+                      float lo, float hi, int positive, int cols, int block_x, int block_y,
+                      int grid_x, int grid_y, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch_calibrate<__nv_bfloat16, false>(
-        static_cast<const __nv_bfloat16*>(x), e, ok, m1, v1, m2, v2, v1sum, out, n, d, nb,
-        lo, hi, positive, s);
+        static_cast<const __nv_bfloat16*>(x), e, ok, m1, v1, m2, v2, v1sum, out, table, n, d,
+        nb, lo, hi, positive, cols, block_x, block_y, grid_x, grid_y, s);
   return launch_calibrate<float, false>(static_cast<const float*>(x), e, ok, m1, v1, m2, v2,
-                                        v1sum, out, n, d, nb, lo, hi, positive, s);
+                                        v1sum, out, table, n, d, nb, lo, hi, positive, cols,
+                                        block_x, block_y, grid_x, grid_y, s);
 }
 
 int fds_calibrate_bwd(const float* g, const int* e, const bool* ok, const float* v1,
                       const float* v2, const float* v1sum, float* out, int n, int d, int nb,
-                      float lo, float hi, int positive, void* stream) {
-  return launch_calibrate<float, true>(g, e, ok, nullptr, v1, nullptr, v2, v1sum, out, n, d,
-                                       nb, lo, hi, positive, static_cast<cudaStream_t>(stream));
+                      float lo, float hi, int positive, int cols, int block_x, int block_y,
+                      int grid_x, int grid_y, void* stream) {
+  return launch_calibrate<float, true>(g, e, ok, nullptr, v1, nullptr, v2, v1sum, out, nullptr,
+                                       n, d, nb, lo, hi, positive, cols, block_x, block_y, grid_x,
+                                       grid_y, static_cast<cudaStream_t>(stream));
 }
 
 // The most rows the short-batch kernel takes (ops/cuda_kernels.py checks

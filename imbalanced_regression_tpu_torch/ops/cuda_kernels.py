@@ -14,7 +14,12 @@ Four kernels in ``csrc/`` replace the Pallas TPU kernels of the JAX package
   split on the tensor cores (``pallas_moments_v2`` / ``_moments_v2_kernel``
   and ``_split3``; ``moments_v2.cu``).
 
-K3 runs one of two kernels, chosen by :func:`moments_plan` from the shapes:
+K1 runs in one of two forms, chosen by :func:`calibrate_plan` from the
+shapes: direct (each row gathers its bucket's statistics and computes the
+factor per element) for small batches, and factored (a first kernel writes
+the per-bucket factor table, a second gathers from it) for large ones; K2
+runs the direct form. K3
+runs one of two kernels, chosen by :func:`moments_plan` from the shapes:
 a short-batch kernel for a few thousand rows or fewer, and a row split for
 more. The row split, and K4, cut the rows into chunks (:func:`row_chunks`,
 :func:`v2_chunks`) and add the chunks' partials in a fixed order, so both
@@ -56,10 +61,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, x_bf16, e, ok, m1, v1, m2, v2, v1sum, out, n, d, nb, lo, hi, positive, stream
-    "fds_calibrate_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
-    # g, e, ok, v1, v2, v1sum, out, n, d, nb, lo, hi, positive, stream
-    "fds_calibrate_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    # x, x_bf16, e, ok, m1, v1, m2, v2, v1sum, out, table, n, d, nb, lo, hi, positive,
+    # then the CalibratePlan's launch (cols, block_x, block_y, grid_x, grid_y), stream
+    "fds_calibrate_fwd": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                          _I, _I, _I, _I, _I, _P),
+    # g, e, ok, v1, v2, v1sum, out, n, d, nb, lo, hi, positive, the launch, stream
+    "fds_calibrate_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                          _I, _I, _I, _I, _I, _P),
     # f, f_bf16, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks,
     # kernel, stream
     "fds_segment_moments": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -184,12 +192,83 @@ def _mode_flag(mode: str) -> int:
 # ---------------------------------------------------------------------------
 
 
+CALIBRATE_THREADS = 256  # a block's threads (kCalibrateThreads in csrc/fds_kernels.cu)
+ROW_TILE_THREADS = 64  # the most threads of a block along a row
+# the factored form runs where there are at least this many rows a SM for
+# each bucket: its factor kernel (one more launch, a pass over the [B, D]
+# statistics) then costs a few percent of the call
+FACTORED_ROWS_PER_BUCKET = 8
+
+
+class CalibratePlan(NamedTuple):
+    """How K1/K2 run: ``cols`` columns a thread (4: one 16-byte load; 1:
+    where D % 4 != 0 or a pointer is not 16-byte aligned), a block of
+    ``block_x`` threads along a row tile by ``block_y`` rows, ``grid_x``
+    row blocks by ``grid_y`` row tiles, and ``factored``: K1's factor
+    table first (the factored form), else the direct form."""
+
+    cols: int
+    block_x: int
+    block_y: int
+    grid_x: int
+    grid_y: int
+    factored: bool
+
+
+@functools.cache
+def calibrate_plan(n: int, d: int, nb: int, sm_count: int, bwd: bool = False,
+                   vec: bool = True) -> CalibratePlan:
+    """K1's (``bwd`` False) or K2's launch plan for ``n`` rows of ``d``
+    columns and ``nb`` buckets on a card with ``sm_count`` SMs; ``vec``:
+    the pointers are 16-byte aligned. A thread owns ``cols`` columns; a row
+    tile is the whole row up to ``ROW_TILE_THREADS`` threads, else the
+    widest tile of at least a warp that divides the row (every thread has
+    columns), else even tiles (fewer idle threads than tiles). K1 takes the
+    factored form from ``FACTORED_ROWS_PER_BUCKET * nb * sm_count`` rows
+    on; K2 the direct form at every shape."""
+    cols = 4 if vec and d % 4 == 0 else 1
+    q = -(-d // cols)  # threads a row
+    whole = [w for w in range(32, ROW_TILE_THREADS + 1) if q % w == 0]
+    block_x = q if q <= ROW_TILE_THREADS else (
+        whole[-1] if whole else -(-q // -(-q // ROW_TILE_THREADS)))
+    rows = CALIBRATE_THREADS // block_x
+    return CalibratePlan(cols, block_x, rows, -(-n // rows), -(-q // block_x),
+                         not bwd and nb > 0 and n >= FACTORED_ROWS_PER_BUCKET * nb * sm_count)
+
+
+def _calibrate_launch(name: str, x, e, ok, tables, v1sum, head=(), tail=()):
+    """Allocate K1/K2's output (and, for K1's factored form, its scratch
+    table) and launch entry point ``name`` on ``x`` [N, D] and the float32
+    [B, D] ``tables`` (four for K1, two for K2), with ``head`` after x's
+    pointer and ``tail`` (lo, hi, positive) before the plan's launch."""
+    n, d = x.shape
+    nb = v1sum.shape[0]
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n * d == 0:
+        return out
+    ptrs = [t.data_ptr() for t in tables]
+    vec = (x.data_ptr() % (4 * x.element_size()) == 0
+           and all(p % 16 == 0 for p in (*ptrs, out.data_ptr())))
+    dev = x.get_device()
+    bwd = len(tables) == 2
+    plan = calibrate_plan(n, d, nb, _sm_count(dev), bwd, vec)
+    # K1's factored form: the factor, m1 and m2 [B, D], held until the
+    # launches are enqueued
+    table = torch.empty((3 * nb * d,), dtype=torch.float32, device=x.device) \
+        if plan.factored else None
+    scratch = () if bwd else (table.data_ptr() if plan.factored else None,)
+    _launch(name, dev, x.data_ptr(), *head, e.data_ptr(), ok.data_ptr(), *ptrs,
+            v1sum.data_ptr(), out.data_ptr(), *scratch, n, d, nb, *tail, *plan[:5])
+    return out
+
+
 def calibrate_forward(x, e, ok, m1, v1, m2, v2, v1sum, clip_min: float, clip_max: float,
                       mode: str) -> torch.Tensor:
     """K1: ``where(mask, (x - m1[e]) * sqrt(clip(v2[e] / v1[e])) + m2[e], x)``
     for ``x`` [N, D] float32/bf16, ``e`` [N] int32, ``ok`` [N] bool and
     float32 statistics [B, D] with ``v1sum`` [B]; float32 [N, D] out.
-    Plain version: :func:`ops.calibrate.calibrate_indexed`."""
+    Runs the form :func:`calibrate_plan` picks. Plain version:
+    :func:`ops.calibrate.calibrate_indexed`."""
     if _on_cpu(x):
         return calibrate_indexed(x, e, ok, m1, v1, m2, v2, v1sum, clip_min, clip_max, mode)
     positive = _mode_flag(mode)
@@ -202,10 +281,9 @@ def calibrate_forward(x, e, ok, m1, v1, m2, v2, v1sum, clip_min: float, clip_max
     for name, t in (("m1", m1), ("v1", v1), ("m2", m2), ("v2", v2)):
         _check(name, t, _F32, (b, d), dev)
     _check("v1sum", v1sum, _F32, (b,), dev)
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _launch("fds_calibrate_fwd", x.get_device(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-            e.data_ptr(), ok.data_ptr(), m1.data_ptr(), v1.data_ptr(), m2.data_ptr(),
-            v2.data_ptr(), v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min, clip_max, positive)
+    # the entry point takes m1, v1, m2, v2 in this order
+    out = _calibrate_launch("fds_calibrate_fwd", x, e, ok, (m1, v1, m2, v2), v1sum,
+                            (int(x.dtype == torch.bfloat16),), (clip_min, clip_max, positive))
     calibrate_forward.launches += 1
     return out
 
@@ -226,10 +304,8 @@ def calibrate_backward(g, e, ok, v1, v2, v1sum, clip_min: float, clip_max: float
     _check("v1", v1, _F32, (b, d), dev)
     _check("v2", v2, _F32, (b, d), dev)
     _check("v1sum", v1sum, _F32, (b,), dev)
-    out = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _launch("fds_calibrate_bwd", g.get_device(), g.data_ptr(), e.data_ptr(), ok.data_ptr(),
-            v1.data_ptr(), v2.data_ptr(), v1sum.data_ptr(), out.data_ptr(), n, d, b, clip_min,
-            clip_max, positive)
+    out = _calibrate_launch("fds_calibrate_bwd", g, e, ok, (v1, v2), v1sum, (),
+                            (clip_min, clip_max, positive))
     calibrate_backward.launches += 1
     return out
 

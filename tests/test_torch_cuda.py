@@ -73,9 +73,14 @@ def test_calibrate_kernels_match_plain(cuda_device, mode, clips, dtype):
 
 
 @pytest.mark.cuda
-def test_calibrate_kernels_take_many_rows(cuda_device):
-    """More row blocks (of 4 rows) than a grid's y axis holds (65,535), as
-    NYUD2's per-pixel rows need (554,496 at batch 32)."""
+@pytest.mark.parametrize("factored", [True, False])
+def test_calibrate_kernels_take_many_rows(cuda_device, monkeypatch, factored):
+    """Many rows (4 x 65,535 + 5), as NYUD2's per-pixel rows are (554,496 at
+    batch 32), in the factored form and in the direct one (the plan with
+    the factored form's least rows out of reach)."""
+    if not factored:
+        monkeypatch.setattr(ck, "FACTORED_ROWS_PER_BUCKET", 2**40)
+        ck.calibrate_plan.cache_clear()
     rng = np.random.default_rng(5)
     n, d, b = 4 * 65_535 + 5, 8, 10
     t = lambda a: torch.as_tensor(a).to(cuda_device)  # noqa: E731
@@ -85,11 +90,14 @@ def test_calibrate_kernels_take_many_rows(cuda_device):
     m1, m2 = (t(rng.normal(size=(b, d)).astype(np.float32)) for _ in range(2))
     v1, v2 = (t(rng.uniform(0.01, 3.0, size=(b, d)).astype(np.float32)) for _ in range(2))
     args = (x, e, ok, m1, v1, m2, v2, v1.sum(1), 0.2, 5.0, "positive")
+    sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert ck.calibrate_plan(n, d, b, sm).factored == factored
     torch.testing.assert_close(ck.calibrate_forward(*args), calibrate_indexed(*args),
                                rtol=1e-6, atol=1e-6)
     bargs = (x, e, ok, v1, v2, v1.sum(1), 0.2, 5.0, "positive")
     torch.testing.assert_close(ck.calibrate_backward(*bargs), calibrate_indexed_grad(*bargs),
                                rtol=1e-6, atol=1e-6)
+    ck.calibrate_plan.cache_clear()  # the monkeypatched constant goes back after the test
 
 
 @pytest.mark.cuda
@@ -102,6 +110,55 @@ def test_calibrate_autograd_uses_kernels(cuda_device):
     calibrate_indexed(xp, e, ok, *stats, v1sum, 0.1, 10.0, "nonzero").square().sum().backward()
     torch.testing.assert_close(xg.grad, xp.grad, rtol=1e-6, atol=1e-6)
     assert (ck.calibrate_forward.launches, ck.calibrate_backward.launches) == (1, 1)
+
+
+# K1/K2 at the boundary of calibrate_plan's two forms of K1, the factored
+# form's least rows and one row short of it, at D = 128 (16-byte loads) and
+# D = 130 (the scalar path); no N is a multiple of a block's rows. K2 runs
+# its direct form at both.
+CALIBRATE_REGIMES = ["factored", "direct_one_row_short", "scalar_factored",
+                     "scalar_direct_one_row_short"]
+
+
+def _regime_case(name: str, sm_count: int):
+    """(N, D, B, factored) of case ``name`` on a card with ``sm_count`` SMs."""
+    d, b = (130, 12) if name.startswith("scalar") else (128, 93)
+    least = ck.FACTORED_ROWS_PER_BUCKET * b * sm_count
+    return (least - 1, d, b, False) if name.endswith("short") else (least + 5, d, b, True)
+
+
+def _regime_inputs(dev, n, d, b, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=gen, device=dev)
+    e = torch.randint(-1, b + 1, (n,), generator=gen, device=dev, dtype=torch.int32)  # -1 and B too
+    ok = torch.rand(n, generator=gen, device=dev) > 0.2
+    m1, m2 = torch.randn(2, b, d, generator=gen, device=dev)
+    v1, v2 = 0.01 + 2.99 * torch.rand(2, b, d, generator=gen, device=dev)
+    v1[2] = 0.0  # all-zero v1 row
+    v1[3] = 1e-15  # v1sum below 1e-10
+    v1[:, 5] = 0.0  # a zero column
+    v2[6, 1] = -1.0  # negative v2
+    v2[7, :5] = 100.0  # ratio above clip_max
+    x[e == 2] = -0.0  # passed through with its sign bit
+    return x, e, ok, (m1.contiguous(), v1.contiguous(), m2.contiguous(), v2.contiguous()), v1.sum(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", CALIBRATE_REGIMES)
+def test_calibrate_regimes_bit_equal(cuda_device, regime):
+    sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n, d, b, factored = _regime_case(regime, sm)
+    plan = ck.calibrate_plan(n, d, b, sm)
+    assert plan.factored == factored and plan.cols == (1 if d % 4 else 4), plan
+    assert not ck.calibrate_plan(n, d, b, sm, bwd=True).factored  # K2: the direct form
+    x, e, ok, stats, v1sum = _regime_inputs(cuda_device, n, d, b, seed=len(regime))
+    g = torch.randn(n, d, device=cuda_device)
+    for mode, clips in MODES:
+        for xs in (x, x.to(torch.bfloat16)):
+            args = (xs, e, ok, *stats, v1sum, *clips, mode)
+            assert torch.equal(ck.calibrate_forward(*args), calibrate_indexed(*args)), (mode, xs.dtype)
+        bargs = (g, e, ok, stats[1], stats[3], v1sum, *clips, mode)
+        assert torch.equal(ck.calibrate_backward(*bargs), calibrate_indexed_grad(*bargs)), mode
 
 
 @pytest.mark.cuda
