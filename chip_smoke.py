@@ -123,7 +123,21 @@ Phases:
    the profiler's device busy ms a step); (d) the dataset tools on the
    card's machine, which has no pandas: a 600-image synthetic corpus, its
    AgeDB meta CSV and balanced splits, a NYUD2 FDS subset and corpus word
-   vectors from 400 of phase 11's pairs. The phase's seconds are logged.
+   vectors from 400 of phase 11's pairs. The phase's seconds are logged;
+17. the tutorial and the entry: (a) K1 and K2 bit-equal to their plain
+   versions at the tutorial's step (N = 128, D = 64, B = 51: a row tile
+   of 16 threads) and K3 against its plain version and float64 at its
+   stats pass (N = 1,749, D = 64), each timed; (b)
+   ``tutorial/tutorial.py`` run as it is on the card (``--device cuda``):
+   K1 and K2 launched 182 times (13 steps in each of epochs 1-14), K3 15
+   (one stats pass an epoch); then its ``train`` and ``evaluate`` on the
+   card and on the CPU from the same weights and permutations, first-epoch
+   losses within 1e-5 and final MAEs within 1% relative; (c)
+   ``tools/make_notebook.py --device cuda`` into a temporary directory,
+   every code cell executed and the same cells with outputs as the
+   committed notebook; (d) ``entry()``: a finite (8, 1) output, equal to
+   the CPU forward on the zero batch and within 2^-6 of it on a seeded
+   batch, its host-clock and CUDA-event ms at batch 8.
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -256,6 +270,25 @@ SWEEP_ARGV = ["--synthetic_size", "320", "--img_size", "224", "--batch_size", "6
 # one validation check at the end, one stats pass at the rollover of 41
 STS_FLAX_BUDGET = ["--val_interval", "45", "--max_vals", "1"]
 STS_STEPS = (3, 10, 5)  # the layouts' step windows: warm-up, host-timed, profiled
+# phase 17: the DIR tutorial (a 13 -> 64 -> 64 MLP, FDS on its 64-wide
+# hook, 51 buckets; 1,749 rows after its tail subsampling, 13 steps of 128
+# an epoch, 15 epochs, calibrating from epoch 1), its notebook, the entry
+TUTORIAL_SCRIPT = "imbalanced_regression_tpu_torch/tutorial/tutorial.py"
+TUTORIAL = (64, 51)  # (D, B)
+TUTORIAL_BATCH = 128  # K1/K2's rows
+TUTORIAL_ROWS = 1749  # K3's rows: the stats pass over the whole set
+TUTORIAL_EPOCHS = 15
+# the tutorial on the card against the same run on the CPU (same weights,
+# same permutations): the first epoch's 13 losses (FDS not calibrating
+# yet) within 1e-5 relative, the final overall and per-shot MAE after 15
+# epochs within 1% relative, the tolerances the CPU test holds the port
+# to against JAX (tests/test_torch_tutorial.py); on an H100 the gaps were
+# 1.1e-7 and at most 1.7e-7 (float32 throughout, TF32 off)
+TUTORIAL_LOSS_RTOL = 1e-5
+TUTORIAL_MAE_RTOL = 0.01
+# entry() on the card against the CPU: bf16 ResNet-50, as in phase 14 (on
+# an H100, 4.95e-3 of the largest magnitude on a seeded batch)
+ENTRY_TOL = SERVE_TOL
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -439,10 +472,10 @@ def calibrate_regimes(ck, sm: int) -> list:
     """K1/K2's cases at the boundary of ``calibrate_plan``'s two forms of K1
     (K2 runs its direct form at both), as (name, D, B, N, factored): the
     factored form's least rows (plus 5, so no multiple of a block's rows)
-    and one row short of them, at D = 128 and at D = 130 (the scalar
-    path)."""
+    and one row short of them, at D = 128, at D = 130 (the scalar path)
+    and at the tutorial's D = 64 (a row tile of 16 threads)."""
     cases = []
-    for d, b in ((128, 93), (130, 12)):
+    for d, b in ((128, 93), (130, 12), TUTORIAL):
         least = ck.FACTORED_ROWS_PER_BUCKET * b * sm
         cases += [(f"D={d}, factored form", d, b, least + 5, True),
                   (f"D={d}, direct form one row short", d, b, least - 1, False)]
@@ -2023,6 +2056,156 @@ def tools_phase(ck) -> tuple[dict, dict, dict]:
     return bench, sweep_launches, sts
 
 
+def tutorial_kernel_phase(ck, cal, dev) -> dict:
+    """Phase 17(a): K1 and K2 bit-equal to their plain versions at the
+    tutorial's step (N = 128, D = 64, B = 51: a row tile of 16 threads, 16
+    rows a block), K3 against its plain version and float64 on its stats
+    pass (N = 1,749, D = 64: the short kernel's lanes 16-31 own no column);
+    each timed. Returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    (d, b), sm = TUTORIAL, torch.cuda.get_device_properties(dev).multi_processor_count
+    for bwd in (False, True):
+        log(f"K{1 + bwd} plan at N={TUTORIAL_BATCH} D={d} B={b}: "
+            f"{ck.calibrate_plan(TUTORIAL_BATCH, d, b, sm, bwd)}")
+    records = check_calibrate(ck, cal, gen, dev, TUTORIAL_BATCH, d, b,
+                              [("nonzero", (0.1, 10.0)), ("positive", (0.5, 2.0))], record=True)
+    records.update(check_moments(ck, gen, dev, TUTORIAL_ROWS, d, b, record=True,
+                                 names=("segment_moments",), empty_bucket=True))
+    assert ck.moments_plan(TUTORIAL_ROWS, d, sm).kernel == "short"
+    f, idx = moments_inputs(gen, dev, TUTORIAL_ROWS, d, b, empty_bucket=True)
+    rel_s, rel_q = check_against_float64("segment_moments", ck.segment_moments(f, idx, b),
+                                         float64_moments(f, idx, b))
+    log(f"segment_moments N={TUTORIAL_ROWS} D={d} B={b}: counts exact, sums within {rel_s:.3e} "
+        f"of sum|f|, sumsq within {rel_q:.3e} of sum f^2 (float64 reference)")
+    log_records(records)
+    return records
+
+
+def tutorial_run(ns: dict, device: str) -> tuple[list, dict, dict]:
+    """The tutorial's ``train`` and ``evaluate`` on ``device`` from the
+    weights of its seeded generator and its rng stream."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    X, y = ns["make_data"](rng)
+    backbone, head = ns["make_model"](torch.Generator().manual_seed(0), device)
+    _, losses = ns["train"](backbone, head, X, y, ns["weights"], rng)
+    overall, shots = ns["evaluate"](backbone, head, X, y)
+    return losses, overall, shots
+
+
+def tutorial_phase(ck, device: str = "cuda") -> dict:
+    """Phase 17(b): the tutorial script run as it is on ``device``, the
+    launch counts set to 0 just before and read just after: K1 and K2 on
+    every step from epoch 1, K3 (its short kernel) in every stats pass.
+    Then its ``train`` and ``evaluate`` on ``device`` and on the CPU, from
+    the same weights and permutations: first-epoch losses and final MAEs
+    within ``TUTORIAL_LOSS_RTOL`` / ``TUTORIAL_MAE_RTOL``. Returns the
+    launches."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = [TUTORIAL_SCRIPT, "--device", device]
+    ck.reset_launch_counts()
+    t0 = time.time()
+    try:
+        ns = runpy.run_path(TUTORIAL_SCRIPT)
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    log(f"tutorial ({time.time() - t0:.1f}s): kernel launches {launches}, K3 by kernel "
+        f"{dict(ck.segment_moments.kernels)}")
+    assert len(ns["y"]) == TUTORIAL_ROWS, len(ns["y"])
+    steps = TUTORIAL_ROWS // TUTORIAL_BATCH
+    calibrating = (TUTORIAL_EPOCHS - ns["fds_cfg"].start_smooth) * steps
+    if device == "cuda":
+        assert launches == {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
+                            "segment_moments": TUTORIAL_EPOCHS, "segment_moments_v2": 0}, launches
+        assert ck.segment_moments.kernels == {"short": TUTORIAL_EPOCHS}
+    (card_losses, card, card_shots), (cpu_losses, cpu, cpu_shots) = (
+        tutorial_run(ns, device), tutorial_run(ns, "cpu"))
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    loss_rel = max(rel(a, b) for a, b in zip(card_losses[0], cpu_losses[0]))
+    mae_rel = {r: rel(card_shots[r]["l1"], cpu_shots[r]["l1"]) for r in ("many", "median", "low")}
+    mae_rel["overall"] = rel(card["l1"], cpu["l1"])
+    log(f"tutorial on {device} against the CPU: first-epoch losses within {loss_rel:.3e} "
+        f"relative, final MAE relative gaps {mae_rel}; {device} overall {card}, CPU overall {cpu}")
+    assert all(math.isfinite(v) for e in card_losses for v in e)
+    assert loss_rel <= TUTORIAL_LOSS_RTOL, loss_rel
+    assert max(mae_rel.values()) <= TUTORIAL_MAE_RTOL, mae_rel
+    return launches
+
+
+def notebook_phase(device: str = "cuda") -> None:
+    """Phase 17(c): ``tools/make_notebook.py --device`` into a temporary
+    directory: every code cell executed in order, the same cells with
+    outputs as the committed notebook, the first naming the device."""
+    import tempfile
+
+    from imbalanced_regression_tpu_torch.tools import make_notebook
+
+    committed = json.loads(open(TUTORIAL_SCRIPT.replace(".py", ".ipynb")).read())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        make_notebook.main([TUTORIAL_SCRIPT, os.path.join(tmp, "tutorial.ipynb"),
+                            "--device", device])
+        nb = json.loads(open(os.path.join(tmp, "tutorial.ipynb")).read())
+    code = [c for c in nb["cells"] if c["cell_type"] == "code"]
+    want = [c for c in committed["cells"] if c["cell_type"] == "code"]
+    assert [c["execution_count"] for c in code] == list(range(1, len(code) + 1))
+    assert [bool(c["outputs"]) for c in code] == [bool(c["outputs"]) for c in want]
+    assert [c["source"] for c in code] == [c["source"] for c in want]
+    first = code[0]["outputs"][0]["text"][0]
+    assert first.startswith("device: ") and (device == "cpu") == (first.strip() == "device: cpu")
+    log(f"notebook ({time.time() - t0:.1f}s): {len(code)} code cells executed, "
+        f"{sum(bool(c['outputs']) for c in code)} with outputs; first: {first.strip()}")
+
+
+def entry_phase(device: str = "cuda") -> None:
+    """Phase 17(d): ``entry()``'s forward, (8, 1) and finite, against the
+    same forward on the CPU (the zero batch, whose output is 0 by
+    construction, and a seeded uniform batch) within ``ENTRY_TOL`` of the
+    largest magnitude; host-clock and CUDA-event ms at batch 8."""
+    from imbalanced_regression_tpu_torch.entry import entry
+
+    forward, args = entry(device)
+    out = forward(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (8, 1) and out.dtype == torch.float32 and torch.isfinite(out).all(), out
+    cpu_forward, cpu_args = entry("cpu")
+    x = torch.rand(args[2].shape, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    errs = []
+    for xs in (cpu_args[2], x):
+        got = forward(args[0], args[1], xs.to(args[2].device)).cpu()
+        want = cpu_forward(cpu_args[0], cpu_args[1], xs)
+        assert torch.isfinite(got).all()
+        errs.append(max_err(got, want) / max(float(want.abs().max()), 1e-30))
+    assert errs[0] == 0.0 and errs[1] <= ENTRY_TOL, errs
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward(*args)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    event_ms = time_ms(lambda: forward(*args), iters=reps)
+    log(f"entry(): output {tuple(out.shape)} finite; against the CPU forward: zero batch equal, "
+        f"seeded batch within {errs[1]:.3e} of its largest magnitude; batch 8 at 224x224 bf16: "
+        f"host clock {host_ms:.3f} ms, CUDA events {event_ms:.3f} ms a call")
+
+
+def phase_17(ck, cal, dev) -> tuple[dict, dict]:
+    """Phase 17: the tutorial's kernel shapes, the tutorial, its notebook
+    and the entry. Returns the records and the tutorial's launches."""
+    t0 = time.time()
+    records = tutorial_kernel_phase(ck, cal, dev)
+    launches = tutorial_phase(ck)
+    notebook_phase()
+    entry_phase()
+    log(f"tutorial and entry phase: {time.time() - t0:.1f}s")
+    return records, launches
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
                    indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
@@ -2199,6 +2382,7 @@ def main(argv=None) -> int:
     shutil.rmtree(RESUME_ROOT)
     dp_launches = dp_phase(ck, cal, dev)
     bench_launches, sweep_launches, sts_flax_launches = tools_phase(ck)
+    tutorial_records, tutorial_launches = phase_17(ck, cal, dev)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
@@ -2207,7 +2391,7 @@ def main(argv=None) -> int:
     # 13's legs (batch 64), 15's ranks (64 rows each) and 16's sweep, the
     # bench batch's 16's bench, the depth shape's phases 5, 6 (K4) and 10,
     # the STS-B shape's 11, 12 and 16's per-direction run, the AgeDB
-    # batch's 13
+    # batch's 13, the tutorial's shapes 17
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
                   "13": legs_launches, "15": dp_launches, "16": sweep_launches}
     bench_phases = {"16": bench_launches}
@@ -2217,7 +2401,8 @@ def main(argv=None) -> int:
     kernels = []
     for records, phases in ((age_records, age_phases), (bench_records, bench_phases),
                             (depth_records, depth_phases), (sts_records, sts_phases),
-                            (agedb_records, agedb_phases)):
+                            (agedb_records, agedb_phases),
+                            (tutorial_records, {"17": tutorial_launches})):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
             by_phase = {p: n.get(name, 0) for p, n in phases.items()}

@@ -38,6 +38,10 @@ layer ``k // 2``, direction ``k % 2``; its gate kernels ``i{i,f,g,o}`` and
 ``bilstm.input_kernels_{l}``, ``recurrent_kernels_{l}`` and
 ``recurrent_biases_{l}`` [2, ...].
 
+:func:`mlp_from_flax` takes the tutorial's MLP (``{"backbone": {"Dense_k":
+...}, "head": {"kernel", "bias"}}``) onto its ``dense{k}`` layers and an
+``nn.Linear`` head.
+
 :func:`from_torchvision_resnet` takes a torchvision-format ResNet state dict
 (the ImageNet weights the NYUD2 reference loads into its encoder); the
 port's ResNets use torchvision's names, so it only filters and checks them.
@@ -67,6 +71,12 @@ def _bn(prefix: str, params: dict, stats: dict) -> dict:
             f"{prefix}.running_mean": _t(stats["mean"]), f"{prefix}.running_var": _t(stats["var"])}
 
 
+def _linear(dense: dict, prefix: str = "") -> dict:
+    """A Flax ``Dense`` (kernel [in, out]) as ``nn.Linear`` weights."""
+    return {f"{prefix}weight": _t(np.asarray(dense["kernel"]).T),
+            f"{prefix}bias": _t(dense["bias"])}
+
+
 def from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> dict:
     """Convert a Flax ``ResNetBackbone`` variables tree (``{"params": ...,
     "batch_stats": ...}``) and the ``RegressionHead`` params (``{"Dense_0":
@@ -77,10 +87,20 @@ def from_flax(variables_np: dict | None, head_params_np: dict | None = None) -> 
     if variables_np is not None:
         out["backbone"] = _backbone_from_flax(variables_np["params"], variables_np["batch_stats"])
     if head_params_np is not None:
-        dense = head_params_np["Dense_0"]
-        out["head"] = {"linear.weight": _t(np.asarray(dense["kernel"]).T),
-                       "linear.bias": _t(dense["bias"])}
+        out["head"] = _linear(head_params_np["Dense_0"], "linear.")
     return out
+
+
+def mlp_from_flax(params_np: dict) -> dict:
+    """Convert the JAX tutorial's params (``{"backbone": {"Dense_0": ...,
+    "Dense_1": ...}, "head": {"kernel": ..., "bias": ...}}``, the MLP
+    backbone's ``Dense`` layers and a bare ``nn.Dense(1)`` head) into
+    ``{"backbone": state_dict, "head": state_dict}`` for the port's
+    tutorial MLP (``Dense_k`` → ``dense{k}``) and its ``nn.Linear`` head."""
+    layers = params_np["backbone"]
+    return {"backbone": {k: v for i in range(len(layers))
+                         for k, v in _linear(layers[f"Dense_{i}"], f"dense{i}.").items()},
+            "head": _linear(params_np["head"])}
 
 
 def _backbone_from_flax(params: dict, stats: dict) -> dict:

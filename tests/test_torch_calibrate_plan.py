@@ -30,6 +30,10 @@ H100_SMS = 132
 N_DEPTH = 32 * 114 * 152  # the NYUD2 train step's pixel rows
 MAX_GRID_X, MAX_GRID_Y = 2**31 - 1, 65535  # CUDA's launch limits
 MODES = [("nonzero", (0.1, 10.0)), ("positive", (0.5, 2.0))]
+# (N, D, B): the corner-case inputs' own size, and the tutorial's train
+# step (a 64-wide MLP hook, 51 buckets), whose row tile is narrower than a
+# warp
+SHAPES = [pytest.param((72, 40, 12), id="N72"), pytest.param((128, 64, 51), id="tutorial")]
 
 
 # ------------------------------------------------------------------ the plan
@@ -39,7 +43,7 @@ def _threads_per_row(plan) -> int:
     return plan.block_x * plan.grid_y
 
 
-@pytest.mark.parametrize("d,block_x", [(128, 32), (2048, 64), (12000, 60)])
+@pytest.mark.parametrize("d,block_x", [(128, 32), (2048, 64), (12000, 60), (64, 16)])
 @pytest.mark.parametrize("n", [64, 128, 256, N_DEPTH])
 def test_plan_gives_every_thread_a_column(d, block_x, n):
     plan = ck.calibrate_plan(n, d, 93, H100_SMS)
@@ -75,11 +79,12 @@ def test_factored_form_starts_at_its_least_rows(nb):
 @pytest.mark.parametrize("bwd", [False, True])
 def test_plan_forms_at_the_port_shapes(bwd):
     # K1 at the NYUD2 step's rows and a rank's takes the factored form; K2
-    # there, and both at the age, bench, AgeDB-DIR and STS-B batches, the
-    # direct one
+    # there, and both at the age, bench, AgeDB-DIR, STS-B and tutorial
+    # batches, the direct one
     for n in (N_DEPTH, N_DEPTH // 2):
         assert ck.calibrate_plan(n, 128, 93, H100_SMS, bwd).factored == (not bwd)
-    for n, d, nb in ((64, 2048, 100), (128, 2048, 100), (256, 2048, 97), (128, 12000, 50)):
+    for n, d, nb in ((64, 2048, 100), (128, 2048, 100), (256, 2048, 97), (128, 12000, 50),
+                      (128, 64, 51)):
         assert not ck.calibrate_plan(n, d, nb, H100_SMS, bwd).factored, (n, d)
 
 
@@ -160,10 +165,11 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("mode,clips", MODES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_factored_form_is_bit_equal_to_plain(rng, mode, clips, dtype):
-    x, e, ok, stats, v1sum = _inputs(rng, nan=True)
+def test_factored_form_is_bit_equal_to_plain(rng, mode, clips, dtype, shape):
+    x, e, ok, stats, v1sum = _inputs(rng, *shape, nan=True)
     args = (T(x).to(dtype), T(e), T(ok), *map(T, stats), T(v1sum), *clips, mode)
     got, want = factored_forward(*args), calibrate_indexed(*args)
     assert torch.equal(_bits(got), _bits(want))  # NaNs and signed zeros too
@@ -175,9 +181,10 @@ def test_factored_form_is_bit_equal_to_plain(rng, mode, clips, dtype):
     assert torch.equal(_bits(factored_backward(*bargs)), _bits(calibrate_indexed_grad(*bargs)))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("mode,clips", MODES)
-def test_factored_form_matches_pallas(rng, mode, clips):
-    x, e, ok, stats, v1sum = _inputs(rng)
+def test_factored_form_matches_pallas(rng, mode, clips, shape):
+    x, e, ok, stats, v1sum = _inputs(rng, *shape)
     got = factored_forward(T(x), T(e), T(ok), *map(T, stats), T(v1sum), *clips, mode).numpy()
     jargs = (jnp.asarray(e), jnp.asarray(ok), tuple(map(jnp.asarray, stats)), jnp.asarray(v1sum),
              clips[0], clips[1], mode)

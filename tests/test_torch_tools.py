@@ -490,7 +490,8 @@ IMPORT_BLOCKED = """
 import importlib, sys
 for name in {blocked!r}:
     sys.modules[name] = None  # any import of it raises ImportError
-for module in sys.argv[1:]:
+modules, sys.argv[1:] = sys.argv[1:], ["--device", "cpu"]  # the tutorial script runs on import
+for module in modules:
     importlib.import_module(module)
 print(sorted(m for m, mod in sys.modules.items()
              if m.split(".")[0] in {blocked!r} and mod is not None))

@@ -159,6 +159,7 @@ def test_port_never_imports_jax():
             "imbalanced_regression_tpu_torch.data.staging",
             "imbalanced_regression_tpu_torch.data.streaming"} <= set(modules)
     code = ("import importlib, sys\n"
+            "sys.argv[1:] = ['--device', 'cpu']  # the tutorial script runs on import\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', "
