@@ -80,7 +80,12 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, parse_config
-from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
+from imbalanced_regression_tpu_torch.utils.logging_tools import (
+    MetricsWriter,
+    host_memory_gb,
+    recorder,
+    step_log,
+)
 from imbalanced_regression_tpu_torch.utils.metrics import regression_metrics, shot_metrics
 
 logger = logging.getLogger(__name__)
@@ -311,7 +316,9 @@ def run(config: ExperimentConfig) -> dict:
                    "val_loss_l1": overall["l1"], "val_loss_gmean": overall["gmean"],
                    "images_per_sec": throughput, "images_per_sec_per_rank": throughput / ranks,
                    "train_seconds": train_dt,
-                   "fds_pass_seconds": fds_dt, "host_rss_gb": rss, "host_peak_rss_gb": peak_rss}
+                   "fds_pass_seconds": fds_dt, "host_rss_gb": rss, "host_peak_rss_gb": peak_rss,
+                   **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
+                                              epochs={epoch}))}
         writer.log_dict(scalars, epoch)
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})
         logger.info(

@@ -74,7 +74,12 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
-from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
+from imbalanced_regression_tpu_torch.utils.logging_tools import (
+    MetricsWriter,
+    host_memory_gb,
+    recorder,
+    step_log,
+)
 from imbalanced_regression_tpu_torch.utils.metrics import DepthEvaluator
 
 logger = logging.getLogger(__name__)
@@ -310,7 +315,9 @@ def run(config: NYUDConfig) -> dict:
         rss, peak_rss = host_memory_gb()
         scalars = {"train_loss": train_loss, "test_rmse": rmse, "images_per_sec": throughput,
                    "images_per_sec_per_rank": throughput / ranks, "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
-                   "host_peak_rss_gb": peak_rss}
+                   "host_peak_rss_gb": peak_rss,
+                   **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
+                                              epochs={epoch}))}
         writer.log_dict(scalars, epoch)
         writer.log_dict(metric["overall"], epoch, prefix="test_")
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})

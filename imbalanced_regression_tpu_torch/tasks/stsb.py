@@ -75,7 +75,7 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
-from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter
+from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, recorder, step_log
 from imbalanced_regression_tpu_torch.utils.metrics import STSShotAverage
 
 logger = logging.getLogger(__name__)
@@ -323,6 +323,7 @@ def run(config: STSConfig) -> dict:
     stopped = False
     _sync(trainer.device)
     t_interval, stats_in_interval = time.perf_counter(), 0.0
+    interval_ns = time.time_ns()  # the interval's spans start here
     while not stopped and n_pass < max_iters:
         idx, _ = next(gen)
         state, loss, pred = trainer.train_step_indexed(state, idx, real_epoch)
@@ -370,7 +371,10 @@ def run(config: STSConfig) -> dict:
             history.append(cur)
             _log_shots(metric, "Val")
             writer.log_dict({"train_loss": tr_loss, "pairs_per_sec": pairs_per_sec,
-                             "pairs_per_sec_per_rank": pairs_per_sec / ranks}, val_check)
+                             "pairs_per_sec_per_rank": pairs_per_sec / ranks,
+                             **step_log(recorder.closed("step", "input_wait",
+                                                        trainer=trainer.trace_id,
+                                                        since_ns=interval_ns))}, val_check)
             writer.log_dict(metric["overall"], val_check, prefix="val_")
             is_best = is_new_best(history)
             if is_best:
@@ -389,6 +393,7 @@ def run(config: STSConfig) -> dict:
                 stopped = True
             _sync(trainer.device)
             t_interval, stats_in_interval = time.perf_counter(), 0.0
+            interval_ns = time.time_ns()
 
     writer.close()
     logger.info("Training stopped after %d iterations (%d val checks)", n_pass, len(history))

@@ -103,6 +103,7 @@ from imbalanced_regression_tpu_torch.models.resnet import use_global_batch_norm
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
 from imbalanced_regression_tpu_torch.ops.moments import all_reduce_moments
 from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from imbalanced_regression_tpu_torch.utils.logging_tools import recorder
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -208,6 +209,13 @@ class Trainer:
         self._loss_fn = config.loss_fn()
         self._bound_data: dict | None = None
         self._copy_stream: torch.cuda.Stream | None = None  # side stream of the staged copies
+        # spans (utils.logging_tools.recorder): this trainer's number, and
+        # the epoch it last stepped or passed in, which its predictions carry
+        self.trace_id = recorder.new_trainer(self.device)
+        self._epoch = -1
+
+    def _span(self, name: str, epoch: int | None = None, rows: int = -1):
+        return recorder.span(name, self.trace_id, self._epoch if epoch is None else epoch, rows)
 
     # ------------------------------------------------------------------ setup
     def init_state(self, seed: int = 0) -> TrainState:
@@ -274,7 +282,9 @@ class Trainer:
         one or two batches ahead: on CUDA through pinned buffers on the side
         stream (:class:`PinnedStager`; the current stream waits on each
         batch's copy), on the CPU by ``_to_device``. Closing this generator
-        stops the thread."""
+        stops the thread. Each batch's wait (taking it from the thread, and
+        the current stream's wait on its copy) is an ``input_wait`` span of
+        the epoch the trainer is in."""
         if self.device.type == "cuda":
             if self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
@@ -283,8 +293,15 @@ class Trainer:
             stage_batch, ready = self._to_device, lambda b: b
         transform = stage_batch if self.mesh is None else lambda b: stage_batch(self._local(b))
         with contextlib.closing(prefetch_batches(batches, transform=transform)) as staged:
-            for batch in staged:
-                yield ready(batch)
+            while True:
+                with self._span("input_wait") as span:
+                    batch = next(staged, None)
+                    if batch is None:
+                        span.drop()
+                        return
+                    batch = ready(batch)
+                    span.rows = len(batch["target"])
+                yield batch
 
     # ---------------------------------------------------- device-resident data
     def bind_device_data(self, data: dict) -> None:
@@ -295,12 +312,13 @@ class Trainer:
         of each index batch."""
         self._bound_data = self._to_device(data)
 
-    def _gather(self, idx) -> dict:
+    def _gather(self, idx, epoch: int) -> dict:
         assert self._bound_data is not None, "call bind_device_data first"
-        if self.mesh is not None:
-            idx = shard_batch(self.mesh, np.asarray(idx))
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device, non_blocking=True)
-        return tree_map(lambda a: a.index_select(0, idx), self._bound_data)
+        with self._span("gather", epoch, len(idx)):
+            if self.mesh is not None:
+                idx = shard_batch(self.mesh, np.asarray(idx))
+            idx = torch.as_tensor(np.asarray(idx, np.int64)).to(self.device, non_blocking=True)
+            return tree_map(lambda a: a.index_select(0, idx), self._bound_data)
 
     # ------------------------------------------------------------------ steps
     def train_step(self, state: TrainState, batch: dict, epoch: int):
@@ -313,37 +331,43 @@ class Trainer:
     def train_step_indexed(self, state: TrainState, idx, epoch: int):
         """:meth:`train_step` on rows ``idx`` of the :meth:`bind_device_data`
         data, gathered on the device."""
-        return self._step(state, self._gather(idx), epoch)
+        return self._step(state, self._gather(idx, epoch), epoch)
 
     def _step(self, state: TrainState, b: dict, epoch: int):
-        # per-epoch MultiStep lr (utils.py:81-86): lr * 0.1 per passed milestone
-        lr = self.config.lr * 0.1 ** sum(epoch >= m for m in self.config.schedule)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.backbone.train()
-        state.head.train()
-        generator = self._draws(state.generator)
-        x = b["input"]
-        if self.train_augment is not None:
-            x = self.train_augment(x, generator)
-        encoding = state.backbone(x, generator=generator)
-        if self.fds_config is not None:
-            encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
-                                  bucket_idx=b.get("bucket_idx"), mesh=self.mesh)
-        pred = state.head(encoding, generator=generator)
-        weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
-        scale = self.config.target_scale
-        target = b["target"] / scale if scale != 1.0 else b["target"]
-        loss = self._loss_fn(pred, target, weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if self.mesh is not None:
-            self._average_gradients(state)
-        if self.config.clip_grad_norm is not None:
-            clip_by_global_norm([p.grad for g in state.optimizer.param_groups for p in g["params"]
-                                 if p.grad is not None], self.config.clip_grad_norm)
-        state.optimizer.step()
-        state.step += 1
+        """One step, as a ``step`` span that ends with the step's completion
+        event (on CUDA, after the optimizer's kernels)."""
+        self._epoch = epoch
+        with self._span("step", epoch, len(b["target"])) as span:
+            # per-epoch MultiStep lr (utils.py:81-86): lr * 0.1 per passed milestone
+            lr = self.config.lr * 0.1 ** sum(epoch >= m for m in self.config.schedule)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.backbone.train()
+            state.head.train()
+            generator = self._draws(state.generator)
+            x = b["input"]
+            if self.train_augment is not None:
+                x = self.train_augment(x, generator)
+            encoding = state.backbone(x, generator=generator)
+            if self.fds_config is not None:
+                encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
+                                      bucket_idx=b.get("bucket_idx"), mesh=self.mesh)
+            pred = state.head(encoding, generator=generator)
+            weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
+            scale = self.config.target_scale
+            target = b["target"] / scale if scale != 1.0 else b["target"]
+            loss = self._loss_fn(pred, target, weights)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if self.mesh is not None:
+                self._average_gradients(state)
+            if self.config.clip_grad_norm is not None:
+                clip_by_global_norm([p.grad for g in state.optimizer.param_groups
+                                     for p in g["params"] if p.grad is not None],
+                                    self.config.clip_grad_norm)
+            state.optimizer.step()
+            state.step += 1
+            recorder.completed(span)
         return state, loss.detach(), pred.detach()
 
     @torch.no_grad()
@@ -377,22 +401,25 @@ class Trainer:
         never reach the prefetcher and it goes on with the uninterrupted
         run's step sequence. ``step_hook(state, step_in_epoch)`` is called
         every ``hook_every`` completed steps with the post-step state, after
-        a device sync."""
-        losses, counts = [], []
-        with contextlib.closing(self._device_batches(batches)) as device_batches:
-            for i, b in enumerate(device_batches, start=start_step):
-                counts.append(len(b["target"]))
-                state, loss, _ = self._step(state, b, epoch)
-                losses.append(loss)
-                if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    step_hook(state, i + 1)
-        if not losses:
-            return state, 0.0
-        # single sync; under a mesh the global batches' losses (equal shards:
-        # the mean of the ranks' means)
-        losses = self.rank_mean(torch.stack(losses)).cpu().numpy()
+        a device sync. The call is a ``train_epoch`` span."""
+        self._epoch = epoch
+        with self._span("train_epoch", epoch):
+            losses, counts = [], []
+            with contextlib.closing(self._device_batches(batches)) as device_batches:
+                for i, b in enumerate(device_batches, start=start_step):
+                    counts.append(len(b["target"]))
+                    state, loss, _ = self._step(state, b, epoch)
+                    losses.append(loss)
+                    if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
+                        if self.device.type == "cuda":
+                            torch.cuda.synchronize(self.device)
+                        step_hook(state, i + 1)
+            if not losses:
+                return state, 0.0
+            # single sync; under a mesh the global batches' losses (equal
+            # shards: the mean of the ranks' means)
+            with self._span("readback", epoch):
+                losses = self.rank_mean(torch.stack(losses)).cpu().numpy()
         if np.any(~np.isfinite(losses)) or np.any(losses > 1e6):
             raise FloatingPointError(f"Loss explosion: max={losses.max()}")
         counts = np.asarray(counts)
@@ -408,29 +435,33 @@ class Trainer:
     def fds_epoch_pass_indexed(self, state: TrainState, idx_batches: Iterable, epoch: int) -> TrainState:
         """:meth:`fds_epoch_pass` over index batches of the
         :meth:`bind_device_data` data."""
-        return self._fds_pass(state, (self._gather(idx) for idx in idx_batches), epoch)
+        return self._fds_pass(state, (self._gather(idx, epoch) for idx in idx_batches), epoch)
 
     @torch.no_grad()
     def _fds_pass(self, state: TrainState, device_batches: Iterable[dict], epoch: int) -> TrainState:
         cfg = self.fds_config
         if cfg is None or epoch < cfg.start_update:
             return state
-        moments = fds_zero_moments(cfg, self.device)
-        generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
-        # train-mode backbone (BN batch stats update and live dropout, like
-        # the reference's model.train() + no_grad stats pass), pre-smooth
-        # encodings, over the augmented train loader (imdb-wiki-dir/train.py:273)
-        state.backbone.train()
-        for b in device_batches:
-            x = b["input"]
-            if self.train_augment is not None:
-                x = self.train_augment(x, generator)
-            encoding = state.backbone(x, generator=generator)
-            moments = moments + fds_bucket_moments(cfg, encoding, b["target"], b.get("bucket_idx"))
-        if self.mesh is not None:
-            moments = all_reduce_moments(moments, self.mesh)  # once a pass
-        fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
-        state.fds = fds_apply_moments(cfg, fds, moments, epoch)
+        self._epoch = epoch
+        with self._span("fds_pass", epoch):
+            moments = fds_zero_moments(cfg, self.device)
+            generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
+            # train-mode backbone (BN batch stats update and live dropout,
+            # like the reference's model.train() + no_grad stats pass),
+            # pre-smooth encodings, over the augmented train loader
+            # (imdb-wiki-dir/train.py:273)
+            state.backbone.train()
+            for b in device_batches:
+                x = b["input"]
+                if self.train_augment is not None:
+                    x = self.train_augment(x, generator)
+                encoding = state.backbone(x, generator=generator)
+                moments = moments + fds_bucket_moments(cfg, encoding, b["target"],
+                                                       b.get("bucket_idx"))
+            if self.mesh is not None:
+                moments = all_reduce_moments(moments, self.mesh)  # once a pass
+            fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
+            state.fds = fds_apply_moments(cfg, fds, moments, epoch)
         return state
 
     @torch.no_grad()
@@ -447,15 +478,18 @@ class Trainer:
         if self.eval_transform is not None:
             x = self.eval_transform(x)
         pred = self.all_rows(state.head(state.backbone(x)))
-        return pred.cpu().numpy()[:n]
+        with self._span("readback", rows=n):
+            return pred.cpu().numpy()[:n]
 
     def predict(self, state: TrainState, batches: Iterable[dict]):
-        """Gather predictions and targets on the host for metric computation."""
+        """Gather predictions and targets on the host for metric computation
+        (a ``predict`` span)."""
         preds, targets = [], []
-        for batch in batches:
-            n = batch.pop("count", len(batch["target"]))
-            preds.append(self.predict_batch(state, batch, n))
-            targets.append(np.asarray(batch["target"])[:n])
+        with self._span("predict"):
+            for batch in batches:
+                n = batch.pop("count", len(batch["target"]))
+                preds.append(self.predict_batch(state, batch, n))
+                targets.append(np.asarray(batch["target"])[:n])
         return np.concatenate(preds), np.concatenate(targets)
 
 

@@ -5,6 +5,7 @@ where the CPU's bf16 convolutions give non-finite gradients even with
 PyTorch's own batch norm; at 32x32 only the last stage does, and training
 stays finite.)"""
 
+import json
 import math
 
 import numpy as np
@@ -47,8 +48,12 @@ def test_age_driver_two_epochs_on_cpu(tmp_path):
     assert np.abs(fds.running_mean_last_epoch.numpy()).sum() > 0
     # on the CPU every wrapper takes its plain version: no launches
     assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
-    assert (tmp_path / "imdb_wiki_resnet50_lds_gau_5_1.0_fds_gau_5_1.0_0_1_0.9_adam_l1_0.001_16"
-            / "metrics.jsonl").exists()
+    log = (tmp_path / "imdb_wiki_resnet50_lds_gau_5_1.0_fds_gau_5_1.0_0_1_0.9_adam_l1_0.001_16"
+           / "metrics.jsonl")
+    # the epoch log carries the spans' view: the median step, the input waits
+    tags = {(r["tag"], r["step"]) for r in map(json.loads, log.read_text().splitlines())}
+    assert {(t, e) for t in ("step_host_ms", "input_wait_seconds") for e in (0, 1)} <= tags
+    assert [h["step_host_ms"] > 0 for h in history] == [True, True]
 
 
 @pytest.mark.parametrize("flag", [["--max_steps_per_run", "5"], ["--num_devices", "2"],

@@ -7,6 +7,7 @@ weights, the synthetic data, the depth metrics and per-epoch test, and the
 Inputs are made with seeded numpy and handed to both sides."""
 
 import functools
+import json
 import math
 
 import jax
@@ -375,7 +376,9 @@ def test_nyud2_driver_on_cpu(tmp_path):
     # on the CPU every wrapper takes its plain version: no launches
     assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
     store = tmp_path / task.NYUDConfig(**{**vars(_config(tmp_path))}).derived_store_name()
-    assert (store / "metrics.jsonl").exists()
+    tags = {(r["tag"], r["step"])
+            for r in map(json.loads, (store / "metrics.jsonl").read_text().splitlines())}
+    assert {(t, e) for t in ("step_host_ms", "input_wait_seconds") for e in (0, 1, 2)} <= tags
 
 
 def test_parse_nyud_config_matches_jax():

@@ -11,6 +11,7 @@ through a kill and ``--resume``, and the layout is taken from the
 checkpoint, without the flag, on ``--resume``, ``--evaluate`` and RRT
 stage 2 (and a fused checkpoint overrides the flag the other way)."""
 
+import json
 import os
 
 import numpy as np
@@ -102,6 +103,13 @@ def test_run_to_patience_stop(full_run):
     assert meta["metric_state"] == {"hist": hist, "best": result["best_val_mse"]}
     fds = result["final_fds"]
     assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any()
+    # each check's log carries the spans' view of its interval: the median
+    # step; the indexed mode gathers on the device and waits for no input
+    with open(os.path.join(store, "metrics.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    steps = {r["step"]: r["value"] for r in logged if r["tag"] == "step_host_ms"}
+    assert sorted(steps) == list(range(1, len(hist) + 1)) and min(steps.values()) > 0
+    assert {r["value"] for r in logged if r["tag"] == "input_wait_seconds"} == {0.0}
 
 
 def test_killed_and_resumed_is_bit_equal(full_run, data_dir, tmp_path, monkeypatch):
