@@ -137,7 +137,18 @@ Phases:
    every code cell executed and the same cells with outputs as the
    committed notebook; (d) ``entry()``: a finite (8, 1) output, equal to
    the CPU forward on the zero batch and within 2^-6 of it on a seeded
-   batch, its host-clock and CUDA-event ms at batch 8.
+   batch, its host-clock and CUDA-event ms at batch 8;
+18. the graphed train step (``train.py`` ``StepGraphs``) against the eager
+   one at the two benchmark cells' shapes: the AgeDB-DIR ResNet-50 in bf16
+   at batch 256 (``train_epoch`` over staged batches) and the STS-B-DIR
+   BiLSTM at full width at batch 128 (indexed steps), each from the same
+   seeds through stats passes at epochs 0 and 1, three steps, a stats pass
+   (new tables for K1/K2) and three more steps: losses, weights, BN
+   buffers, Adam's state, the FDS state and the generator bit-equal under
+   ``cudnn.deterministic``; then ``GRAPH_TIMED`` steps of each side timed:
+   the host's ms a step (the median ``step`` span) and the ms a step by
+   CUDA events around them (the device's period where the host runs
+   ahead).
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -159,7 +170,8 @@ path, the row split on the depth path.
 ``k3_probe.py`` holds the measurements behind K3's design choices.
 
 Prints the card's name and power limit, a ``{"serving": {...}}`` line
-(phase 14's records), a ``{"kernels": [...]}`` line (one record per kernel
+(phase 14's records), a ``{"graphed_step": {...}}`` line (phase 18's
+timings), a ``{"kernels": [...]}`` line (one record per kernel
 and shape) and as the last line ``{"ok": true, "device":
 {...}}``. Exits non-zero, with no result line, when there is no CUDA device
 or any phase fails.
@@ -289,6 +301,14 @@ TUTORIAL_MAE_RTOL = 0.01
 # entry() on the card against the CPU: bf16 ResNet-50, as in phase 14 (on
 # an H100, 4.95e-3 of the largest magnitude on a seeded batch)
 ENTRY_TOL = SERVE_TOL
+# phase 18: the graphed step against the eager one at the benchmark cells'
+# shapes; steps timed after the bit-equality check (an STS-B epoch is 41)
+GRAPH_AGE_ARGV = ["--dataset", "agedb", "--img_size", "224", "--batch_size", "256", "--fds",
+                  "--lds", "--reweight", "sqrt_inv", "--save_ckpt", "0", "--device", "cuda"]
+GRAPH_STS_RECIPE = {"fds": True, "lds": True, "reweight": "inverse", "device": "cuda",
+                    "batch_size": 128}
+GRAPH_STS_ROWS, GRAPH_STS_VOCAB = 5249, 12004
+GRAPH_TIMED = 41
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
@@ -2206,6 +2226,175 @@ def phase_17(ck, cal, dev) -> tuple[dict, dict]:
     return records, launches
 
 
+def state_digest(state) -> str:
+    """A hash of the weights, BN buffers, Adam's state, the FDS state and
+    the generator of a train state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = [*state.backbone.state_dict().values(), *state.head.state_dict().values()]
+    for per_param in state.optimizer.state.values():
+        tensors += [v for _, v in sorted(per_param.items()) if torch.is_tensor(v)]
+    tensors += [getattr(state.fds, f.name) for f in dataclasses.fields(state.fds)
+                if torch.is_tensor(getattr(state.fds, f.name))]
+    tensors.append(state.generator.get_state())
+    for t in tensors:
+        h.update(t.detach().reshape(-1).cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def graph_side(make, graphed: bool, cell: str) -> dict:
+    """One side of phase 18: ``make()`` gives (trainer, state, steps,
+    stats_pass); ``steps(state, epoch, k)`` runs k steps and returns the
+    state and their losses as floats. Eager where ``graphed`` is false.
+    Returns the losses, the state's digest, the graph counts and the
+    timing."""
+    from imbalanced_regression_tpu_torch import train
+    from imbalanced_regression_tpu_torch.utils.logging_tools import recorder
+
+    real = train.graphable
+    if not graphed:
+        train.graphable = lambda device, mesh: False
+    try:
+        trainer, state, steps, stats_pass = make()
+        for epoch in (0, 1):
+            state = stats_pass(state, epoch)
+        state, losses = steps(state, 2, 3)
+        state = stats_pass(state, 2)
+        state, more = steps(state, 3, 3)
+        torch.cuda.synchronize()
+        digest = state_digest(state)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time_ns()
+        start.record()
+        state, _ = steps(state, 3, GRAPH_TIMED)
+        end.record()
+        end.synchronize()
+        host = [sp.ms for sp in recorder.closed("step", trainer=trainer.trace_id, since_ns=t0)]
+        captures = [sp.ms for sp in recorder.closed("capture", trainer=trainer.trace_id)]
+        out = {"losses": losses + more, "digest": digest, "graph_stats": dict(trainer.graph_stats),
+               "capture_ms": captures[0] if captures else None,
+               "host_ms": statistics.median(host),
+               "period_ms": start.elapsed_time(end) / GRAPH_TIMED,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    finally:
+        train.graphable = real
+    log(f"  {cell} {'graphed' if graphed else 'eager'}: host {out['host_ms']:.3f} ms a step, "
+        f"{out['period_ms']:.3f} ms a step by CUDA events, counts {out['graph_stats']}, capture "
+        f"{out['capture_ms']} ms, device peak {out['peak_gb']:.2f} GB, losses {out['losses']}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def graph_age_cell():
+    """Phase 18's age cell: AgeDB-DIR's recipe at batch 256 on random
+    224x224 uint8 images, its steps through ``train_epoch``'s staging (a
+    call's mean loss is its loss)."""
+    import numpy as np
+
+    from imbalanced_regression_tpu_torch.data.batching import batch_iterator
+    from imbalanced_regression_tpu_torch.tasks import age
+    from imbalanced_regression_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config(GRAPH_AGE_ARGV)
+    rng = np.random.default_rng(18)
+    n = 8 * cfg.batch_size
+    size = cfg.img_size
+    data = {"input": rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8),
+            "target": rng.integers(0, 102, (n, 1)).astype(np.float32),
+            "weight": rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32)}
+
+    def make():
+        trainer = age.build_trainer(cfg)
+        draws = itertools.count()
+
+        def batches(k):
+            rows = np.random.default_rng(next(draws))
+            return itertools.islice(itertools.cycle(
+                list(batch_iterator(data, cfg.batch_size, rng=rows))), k)
+
+        def steps(state, epoch, k):
+            state, loss = trainer.train_epoch(state, batches(k), epoch)
+            return state, [loss]
+
+        def stats_pass(state, epoch):
+            return trainer.fds_epoch_pass(state, batches(2), epoch)
+
+        return trainer, trainer.init_state(0), steps, stats_pass
+
+    return make
+
+
+def graph_sts_cell():
+    """Phase 18's STS-B cell: the recipe's fused BiLSTM at full width in
+    bf16, batch 128 of 40-token pairs, indexed steps over a bound split of
+    STS-B-DIR's size."""
+    import numpy as np
+
+    from imbalanced_regression_tpu_torch.ops.binning import bin_index_hist_np
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    cfg = dataclasses.replace(stsb.STSConfig(), **GRAPH_STS_RECIPE)
+    rng = np.random.default_rng(18)
+    n, width = GRAPH_STS_ROWS, cfg.max_seq_len
+
+    def column():
+        lengths = rng.integers(5, width + 1, n)
+        mask = (np.arange(width)[None] < lengths[:, None]).astype(np.float32)
+        ids = rng.integers(4, GRAPH_STS_VOCAB, (n, width)).astype(np.int32)
+        return ids * mask.astype(np.int32), mask
+
+    (t1, m1), (t2, m2) = column(), column()
+    scores = np.round(5.0 * rng.beta(2.0, 5.0, n), 3).astype(np.float32)
+    data = {"input": {"tokens1": t1, "mask1": m1, "tokens2": t2, "mask2": m2},
+            "target": scores[:, None], "bucket_idx": bin_index_hist_np(scores, cfg.bucket_num, 0),
+            "weight": rng.uniform(0.5, 2.0, (n, 1)).astype(np.float32)}
+    table = rng.normal(0.0, 0.5, (GRAPH_STS_VOCAB, cfg.d_word)).astype(np.float32)
+
+    def make():
+        trainer = stsb.build_sts_trainer(cfg, GRAPH_STS_VOCAB, table)
+        trainer.bind_device_data(data)
+        draws = itertools.count()
+
+        def index_batches(k):
+            order = np.random.default_rng(next(draws)).permutation(n)
+            return [order[i * cfg.batch_size:(i + 1) * cfg.batch_size] for i in range(k)]
+
+        def steps(state, epoch, k):
+            losses = []
+            for idx in index_batches(k):
+                state, loss, _ = trainer.train_step_indexed(state, idx, epoch)
+                losses.append(loss)
+            return state, [float(x) for x in losses]
+
+        def stats_pass(state, epoch):
+            return trainer.fds_epoch_pass_indexed(state, iter(index_batches(2)), epoch)
+
+        return trainer, trainer.init_state(0), steps, stats_pass
+
+    return make
+
+
+def graph_phase() -> dict:
+    """Phase 18: the graphed step against the eager one at both cells'
+    shapes; bit-equal, and timed. Returns the timings by cell."""
+    records = {}
+    with cudnn_determinism(True):
+        for cell, make in (("stsb-bilstm.b128", graph_sts_cell()),
+                           ("age-r50-agedb.b256", graph_age_cell())):
+            eager = graph_side(make, False, cell)
+            graphed = graph_side(make, True, cell)
+            assert graphed["losses"] == eager["losses"], (graphed["losses"], eager["losses"])
+            assert graphed["digest"] == eager["digest"], f"{cell}: graphed and eager states differ"
+            assert graphed["graph_stats"]["replays"] == 5 + GRAPH_TIMED, graphed["graph_stats"]
+            records[cell] = {side: {k: r[k] for k in ("host_ms", "period_ms", "capture_ms", "peak_gb")}
+                             for side, r in (("eager", eager), ("graphed", graphed))}
+            log(f"graph phase {cell}: bit-equal; {json.dumps(records[cell])}")
+    return records
+
+
 def profile_window(name: str, trainer, state, steps_in: list, epoch: int, steps: int,
                    indexed: bool = False, staged: bool = False) -> None:
     """Where the time of a train step goes: the last ``steps`` of
@@ -2383,6 +2572,7 @@ def main(argv=None) -> int:
     dp_launches = dp_phase(ck, cal, dev)
     bench_launches, sweep_launches, sts_flax_launches = tools_phase(ck)
     tutorial_records, tutorial_launches = phase_17(ck, cal, dev)
+    graphs = graph_phase()
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
@@ -2415,6 +2605,7 @@ def main(argv=None) -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "graph_floor_ms": floor, "library_ms": r["library_ms"]})
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"graphed_step": graphs}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -64,8 +64,22 @@ DEPTH_HW = (114, 152)
 # ---------------------------------------------------------------------------
 
 
+_ON_DEVICE: dict = {}  # the constants above on each device they were asked for on
+
+
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(a, device=like.device)
+    """``a`` (one of the module's constant arrays) on ``like``'s device,
+    copied there once: a host copy in every step would also bar the step
+    from a CUDA graph. Under ``torch.export`` (and ``torch.compile``) the
+    copy is the traced program's constant and is kept out of the cache,
+    which holds real tensors only."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(a, device=like.device)
+    key = (id(a), like.device)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.as_tensor(a, device=like.device)
+    return t
 
 
 def imagenet_normalize(images: torch.Tensor) -> torch.Tensor:
@@ -118,11 +132,15 @@ def make_pixel_weight_fn(bucket_weights):
     if bucket_weights is None:
         return None
     table = torch.as_tensor(np.asarray(bucket_weights, np.float32))
+    on_device = {}  # the table on each device it was asked for on, copied once
 
     def weight_fn(batch: dict) -> torch.Tensor:
         target = batch["target"]
         idx = bin_index_depth(target, table.shape[0], 0)
-        return table.to(target.device)[idx.long()]
+        dev_table = on_device.get(target.device)
+        if dev_table is None:
+            dev_table = on_device[target.device] = table.to(target.device)
+        return dev_table[idx.long()]
 
     return weight_fn
 

@@ -245,7 +245,9 @@ def _remat_block(block: nn.Module, x: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "conv_outs":
         context["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                   _save_conv_outs)
-    return checkpoint(run, x, use_reentrant=False, **context)
+    # the blocks draw no random numbers: nothing to stash (a stash reads
+    # the generator's state, which a CUDA graph capture forbids)
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False, **context)
 
 
 def _check_remat(remat: str | None) -> None:

@@ -317,7 +317,7 @@ def run(config: NYUDConfig) -> dict:
                    "images_per_sec_per_rank": throughput / ranks, "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
                    "host_peak_rss_gb": peak_rss,
                    **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
-                                              epochs={epoch}))}
+                                              epochs={epoch}), trainer.graph_stats)}
         writer.log_dict(scalars, epoch)
         writer.log_dict(metric["overall"], epoch, prefix="test_")
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})

@@ -374,7 +374,8 @@ def run(config: STSConfig) -> dict:
                              "pairs_per_sec_per_rank": pairs_per_sec / ranks,
                              **step_log(recorder.closed("step", "input_wait",
                                                         trainer=trainer.trace_id,
-                                                        since_ns=interval_ns))}, val_check)
+                                                        since_ns=interval_ns),
+                                        trainer.graph_stats)}, val_check)
             writer.log_dict(metric["overall"], val_check, prefix="val_")
             is_best = is_new_best(history)
             if is_best:

@@ -57,6 +57,17 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   STS-B encoder's dropout stays live there, ``sts-b-dir/trainer.py:158-166``);
   the ResNet and depth backbones ignore it.
 
+- **Graphed step** (:class:`StepGraphs`): on CUDA without a mesh, a step
+  replays one captured ``torch.cuda.CUDAGraph`` of the whole update (the
+  augment, forward, K1, head, loss, backward with K2, clip and optimizer
+  step) instead of dispatching it kernel by kernel. The graph key is the
+  batch's shapes and dtypes, whether smoothing is on and the lr; a key's
+  first step runs eagerly (it warms cuBLAS, autograd and the optimizer's
+  state), its second captures, every later one replays. The CPU, a mesh
+  and anomaly mode (``enable_nan_debug``) stay eager. Adam is built fused
+  and ``capturable`` on CUDA, so eager and graphed steps run the same
+  kernels and agree bit for bit.
+
 - **Data parallelism** (``mesh=``, :mod:`parallel.mesh`; the JAX
   Trainer's ``mesh``): each rank runs this trainer on its contiguous rows
   of every global batch (host batches, index batches and padded eval
@@ -80,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
@@ -100,6 +112,7 @@ from imbalanced_regression_tpu_torch.fds import (
     fds_zero_moments,
 )
 from imbalanced_regression_tpu_torch.models.resnet import use_global_batch_norm
+from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
 from imbalanced_regression_tpu_torch.ops.moments import all_reduce_moments
 from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
@@ -159,6 +172,143 @@ class TrainerConfig:
         return fn
 
 
+# the FDS tables a step's calibration (K1, K2) reads
+_SMOOTH_TABLES = ("running_mean_last_epoch", "running_var_last_epoch",
+                  "smoothed_mean_last_epoch", "smoothed_var_last_epoch")
+
+
+def _signature(tree: dict) -> tuple:
+    """The keys, shapes and dtypes of a (nested) batch of tensors."""
+    return tuple((k, _signature(v) if isinstance(v, dict) else (tuple(v.shape), v.dtype))
+                 for k, v in tree.items())
+
+
+def _leaves(tree: dict) -> list[torch.Tensor]:
+    return [leaf for v in tree.values() for leaf in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured step: its graph, the static inputs it reads, the loss
+    and predictions it writes, the kernel launches of each
+    ``ck.KERNEL_WRAPPERS`` wrapper in it, and each parameter's gradient
+    tensor it writes."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list[torch.Tensor]
+    loss: torch.Tensor
+    pred: torch.Tensor
+    launches: list[int]
+    grads: list[tuple[torch.Tensor, torch.Tensor]]
+    smooth: bool
+
+
+class StepGraphs:
+    """A train state's captured steps, by graph key, in one memory pool.
+
+    A captured step reads the addresses it was captured with, so what
+    changes between steps is copied into them in place: the batch into the
+    graph's static inputs, and after each stats pass the new FDS tables
+    into the static tables that K1 and K2 read (the copy happens when the
+    state's tables are other tensors than those last copied; an FDS
+    transition never writes into the tensors of the old state). Each replay
+    returns clones of the static loss and predictions, so a caller may keep
+    them, and counts the graph's kernel launches on the wrappers, as the
+    eager step's calls do. :meth:`clear` drops every graph: whatever
+    replaces tensors a graph holds (the optimizer's ``load_state_dict``,
+    :func:`restore_state`, a new :meth:`Trainer.init_state`) calls it."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self.entries: dict[tuple, _Captured] = {}
+        self.warmed: set[tuple] = set()  # keys whose eager warm-up step ran
+        self.tables: tuple[torch.Tensor, ...] | None = None
+        self.tables_of: tuple[torch.Tensor, ...] | None = None
+        self.pool = None
+        self.last: _Captured | None = None  # the graph whose gradients p.grad holds
+
+    def capture(self, key: tuple, batch: dict, fds: FDSState | None, generator: torch.Generator,
+                params: list[torch.Tensor], update: Callable) -> _Captured:
+        """Capture ``update(batch, fds)`` (returning the loss and the
+        predictions) on static copies of ``batch`` and, where ``fds`` is
+        given, of its calibration tables; ``generator`` draws fresh numbers
+        on every replay."""
+        inputs = tree_map(torch.empty_like, batch)
+        if fds is not None:
+            if self.tables is None:
+                self.tables_of = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
+                self.tables = tuple(t.clone() for t in self.tables_of)
+            fds = fds.replace(**dict(zip(_SMOOTH_TABLES, self.tables)))
+        before = [fn.launches for fn in ck.KERNEL_WRAPPERS]
+        graph, (loss, pred) = self._record(generator, lambda: update(inputs, fds))
+        launches = []
+        for fn, n in zip(ck.KERNEL_WRAPPERS, before):  # captured, not launched
+            launches.append(fn.launches - n)
+            fn.launches = n
+        entry = _Captured(graph, _leaves(inputs), loss, pred, launches,
+                          [(p, p.grad) for p in params if p.grad is not None], fds is not None)
+        self.entries[key] = entry
+        return entry
+
+    def _record(self, generator: torch.Generator, run: Callable):
+        """Capture ``run()`` into a new graph of the pool, with
+        ``generator``'s draws registered; returns the graph and what ``run``
+        returned (tensors the graph writes)."""
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        # thread_local: the prefetch thread stages the next batches meanwhile
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            out = run()
+        return graph, out
+
+    def replay(self, entry: _Captured, batch: dict, fds: FDSState | None):
+        """Run ``entry`` on ``batch`` and the state's tables; returns fresh
+        (loss, predictions)."""
+        for static, t in zip(entry.inputs, _leaves(batch)):
+            static.copy_(t)
+        if entry.smooth:
+            tables = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
+            if any(a is not b for a, b in zip(tables, self.tables_of)):
+                for static, t in zip(self.tables, tables):
+                    static.copy_(t)
+                self.tables_of = tables
+        entry.graph.replay()
+        for fn, n in zip(ck.KERNEL_WRAPPERS, entry.launches):
+            fn.launches += n
+        if self.last is not entry:
+            for p, g in entry.grads:
+                p.grad = g
+            self.last = entry
+        return entry.loss.clone(), entry.pred.clone()
+
+
+def graphable(device: torch.device, mesh: Mesh | None) -> bool:
+    """Whether a step on ``device`` under ``mesh`` is graphed: on CUDA,
+    without a mesh (its collectives stay eager) and outside anomaly mode
+    (whose checks read values back in every op)."""
+    return device.type == "cuda" and mesh is None and not torch.is_anomaly_enabled()
+
+
+def _optimizer_loaded(graphs: StepGraphs, on_card: bool, optimizer) -> None:
+    """After ``optimizer.load_state_dict``: the loaded moments are new
+    tensors, so the graphs go; Adam keeps this trainer's form whatever form
+    wrote the file (fused and capturable on CUDA, neither on the CPU), with
+    its step counts on the parameters' device."""
+    graphs.clear()
+    for group in optimizer.param_groups:
+        if "capturable" not in group:
+            continue
+        group["capturable"], group["fused"] = on_card, on_card or None
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
@@ -168,6 +318,7 @@ class TrainState:
     fds: FDSState | None
     generator: torch.Generator  # augmentation and dropout draws, on the device
     mesh: Mesh | None = None  # the data-parallel mesh the state is replicated on
+    graphs: StepGraphs = dataclasses.field(default_factory=StepGraphs, repr=False, compare=False)
 
 
 class Trainer:
@@ -213,6 +364,9 @@ class Trainer:
         # the epoch it last stepped or passed in, which its predictions carry
         self.trace_id = recorder.new_trainer(self.device)
         self._epoch = -1
+        # how often the graphed step engages (see StepGraphs)
+        self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
+        self._graphs: StepGraphs | None = None  # those of the newest state
 
     def _span(self, name: str, epoch: int | None = None, rows: int = -1):
         return recorder.span(name, self.trace_id, self._epoch if epoch is None else epoch, rows)
@@ -236,15 +390,27 @@ class Trainer:
         params = list(head.parameters())
         if not cfg.retrain_fc:
             params = [p for p in backbone.parameters() if p.requires_grad] + params
+        # On CUDA, Adam's fused capturable form: a few multi-tensor kernels a
+        # step, its step counts on the device (the foreach capturable form
+        # adds two power kernels a parameter); eager CUDA steps run it too,
+        # so they agree bit for bit with graphed ones
+        on_card = self.device.type == "cuda"
         if cfg.optimizer == "sgd":
             optimizer = torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum,
                                         weight_decay=cfg.weight_decay, dampening=0.0)
         else:
-            optimizer = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.adam_weight_decay)
+            optimizer = torch.optim.Adam(params, lr=cfg.lr, weight_decay=cfg.adam_weight_decay,
+                                         capturable=on_card, fused=on_card or None)
+            optimizer._warned_capturable_if_run_uncaptured = True  # eager on purpose
         generator = torch.Generator(device=self.device).manual_seed(seed)
         fds = fds_init(self.fds_config, self.device) if self.fds_config else None
+        if self._graphs is not None:
+            self._graphs.clear()  # the modules' tensors may have moved
+        graphs = self._graphs = StepGraphs()
+        optimizer.register_load_state_dict_post_hook(
+            functools.partial(_optimizer_loaded, graphs, on_card))
         state = TrainState(step=0, backbone=backbone, head=head, optimizer=optimizer, fds=fds,
-                           generator=generator, mesh=self.mesh)
+                           generator=generator, mesh=self.mesh, graphs=graphs)
         if self.mesh is not None:
             # every rank seeded the same; the broadcast guards that
             replicate(self.mesh, state)
@@ -335,7 +501,9 @@ class Trainer:
 
     def _step(self, state: TrainState, b: dict, epoch: int):
         """One step, as a ``step`` span that ends with the step's completion
-        event (on CUDA, after the optimizer's kernels)."""
+        event (on CUDA, after the optimizer's kernels). On CUDA without a
+        mesh (and outside anomaly mode) the step is graphed
+        (:meth:`_graphed_update`); elsewhere it runs eagerly."""
         self._epoch = epoch
         with self._span("step", epoch, len(b["target"])) as span:
             # per-epoch MultiStep lr (utils.py:81-86): lr * 0.1 per passed milestone
@@ -344,31 +512,69 @@ class Trainer:
                 group["lr"] = lr
             state.backbone.train()
             state.head.train()
-            generator = self._draws(state.generator)
-            x = b["input"]
-            if self.train_augment is not None:
-                x = self.train_augment(x, generator)
-            encoding = state.backbone(x, generator=generator)
-            if self.fds_config is not None:
-                encoding = fds_smooth(self.fds_config, state.fds, encoding, b["target"], epoch,
-                                      bucket_idx=b.get("bucket_idx"), mesh=self.mesh)
-            pred = state.head(encoding, generator=generator)
-            weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
-            scale = self.config.target_scale
-            target = b["target"] / scale if scale != 1.0 else b["target"]
-            loss = self._loss_fn(pred, target, weights)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            if self.mesh is not None:
-                self._average_gradients(state)
-            if self.config.clip_grad_norm is not None:
-                clip_by_global_norm([p.grad for g in state.optimizer.param_groups
-                                     for p in g["params"] if p.grad is not None],
-                                    self.config.clip_grad_norm)
-            state.optimizer.step()
+            if graphable(self.device, self.mesh):
+                loss, pred = self._graphed_update(state, b, epoch, lr)
+            else:
+                self.graph_stats["eager"] += 1
+                loss, pred = self._update(state, b, state.fds, epoch)
             state.step += 1
             recorder.completed(span)
-        return state, loss.detach(), pred.detach()
+        return state, loss, pred
+
+    def _graphed_update(self, state: TrainState, b: dict, epoch: int, lr: float):
+        """The update as a replayed CUDA graph of ``state.graphs``, keyed by
+        the batch's shapes and dtypes, whether smoothing is on and ``lr``
+        (captured into the optimizer's kernels): a key's first step runs
+        eagerly, its second captures (a ``capture`` span), and each step
+        from the second on replays (a ``replay`` span)."""
+        graphs = state.graphs
+        smooth = self.fds_config is not None and epoch >= self.fds_config.start_smooth
+        key = (_signature(b), smooth, lr)
+        entry = graphs.entries.get(key)
+        if entry is None:
+            if key not in graphs.warmed:
+                graphs.warmed.add(key)
+                graphs.last = None  # p.grad now holds this step's gradients
+                self.graph_stats["eager"] += 1
+                return self._update(state, b, state.fds, epoch)
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            with self._span("capture", epoch):
+                entry = graphs.capture(key, b, state.fds if smooth else None, state.generator,
+                                       params, functools.partial(self._update, state, epoch=epoch))
+            self.graph_stats["captures"] += 1
+        with self._span("replay", epoch):
+            out = graphs.replay(entry, b, state.fds)
+        self.graph_stats["replays"] += 1
+        return out
+
+    def _update(self, state: TrainState, b: dict, fds: FDSState | None, epoch: int):
+        """The step's device work: augment, forward, FDS calibration
+        (against ``fds``), head, weighted loss, backward, gradient
+        averaging under a mesh, clip and optimizer step. Returns the loss
+        and the predictions, detached."""
+        generator = self._draws(state.generator)
+        x = b["input"]
+        if self.train_augment is not None:
+            x = self.train_augment(x, generator)
+        encoding = state.backbone(x, generator=generator)
+        if self.fds_config is not None:
+            encoding = fds_smooth(self.fds_config, fds, encoding, b["target"], epoch,
+                                  bucket_idx=b.get("bucket_idx"), mesh=self.mesh)
+        pred = state.head(encoding, generator=generator)
+        weights = self.weight_fn(b) if self.weight_fn is not None else b.get("weight")
+        scale = self.config.target_scale
+        target = b["target"] / scale if scale != 1.0 else b["target"]
+        loss = self._loss_fn(pred, target, weights)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if self.mesh is not None:
+            self._average_gradients(state)
+        if self.config.clip_grad_norm is not None:
+            clip_by_global_norm([p.grad for g in state.optimizer.param_groups
+                                 for p in g["params"] if p.grad is not None],
+                                self.config.clip_grad_norm)
+        state.optimizer.step()
+        return loss.detach(), pred.detach()
 
     @torch.no_grad()
     def _average_gradients(self, state: TrainState) -> None:
@@ -516,6 +722,7 @@ def snapshot_state(state: TrainState) -> dict:
 
 
 def restore_state(state: TrainState, snapshot: dict) -> TrainState:
+    state.graphs.clear()
     state.backbone.load_state_dict(snapshot["backbone"])
     state.head.load_state_dict(snapshot["head"])
     state.fds = snapshot["fds"]

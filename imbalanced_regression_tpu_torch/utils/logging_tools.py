@@ -12,7 +12,8 @@ only wall-clock meters (SURVEY.md §5.1). The rebuild adds:
 - :func:`enable_nan_debug` — raise at the first NaN, forward or backward;
 - :data:`recorder` — the program's spans: timed host intervals that the
   :class:`~imbalanced_regression_tpu_torch.train.Trainer` opens around its
-  steps, input waits, gathers, read-backs, stats passes and predictions,
+  steps (with a ``capture`` or ``replay`` span inside a graphed one), input
+  waits, gathers, read-backs, stats passes and predictions,
   kept in memory on the device trace's clock, with a completion event for
   each step.
 """
@@ -319,16 +320,22 @@ class SpanRecorder:
 recorder = SpanRecorder()  # the program's spans (see :class:`SpanRecorder`)
 
 
-def step_log(spans: list[Span]) -> dict:
+def step_log(spans: list[Span], graph_stats: dict | None = None) -> dict:
     """The operator's view of a trainer's spans, for an epoch log: the
     median ``step`` span in ms (the host's time to dispatch a step) and the
     seconds spent in ``input_wait`` (the step's and the stats pass's wait
-    for a staged batch); empty where no step was recorded."""
+    for a staged batch), with the trainer's ``graph_stats`` where given
+    (its graphed steps' captures and replays and its eager steps so far);
+    empty where no step was recorded."""
     steps = [s.ms for s in spans if s.name == "step"]
     if not steps:
         return {}
-    return {"step_host_ms": statistics.median(steps),
-            "input_wait_seconds": sum(s.ms for s in spans if s.name == "input_wait") / 1e3}
+    log = {"step_host_ms": statistics.median(steps),
+           "input_wait_seconds": sum(s.ms for s in spans if s.name == "input_wait") / 1e3}
+    if graph_stats is not None:
+        log.update({"graph_captures": graph_stats["captures"],
+                    "graph_replays": graph_stats["replays"], "eager_steps": graph_stats["eager"]})
+    return log
 
 
 # ops whose output holds memory no op has written yet (a NaN there is not

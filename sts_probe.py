@@ -148,6 +148,7 @@ def main() -> int:
               f"({smoke.STS_BATCH * 1e3 / ms:.1f} pairs/s)", flush=True)
     assert len({*losses["unbind"], *losses["slices"]}) == 1, losses
     for form in ("unbind", "slices"):
+        state.graphs.clear()  # a captured step keeps the form it was captured with
         with recurrence(form):
             busy, launches = device_window(trainer, state, window[:6])
         print(f"{form}: device busy {busy:.2f} ms/step, {launches} device activities/step; host "
