@@ -171,29 +171,44 @@ def build_nyud_trainer(config: NYUDConfig, mesh: Mesh | None = None) -> Trainer:
     )
 
 
+def _span(trainer, name: str, rows: int = -1):
+    """A span of ``trainer``'s (``utils.logging_tools.recorder``), of the
+    epoch it last stepped or passed in; a stand-in predictor without a
+    trace id records under none."""
+    return recorder.span(name, getattr(trainer, "trace_id", -1), getattr(trainer, "_epoch", -1),
+                         rows)
+
+
 def test_epoch(trainer, state, test_data, batch_size) -> dict:
     """Per-epoch evaluation: upsample predictions to depth resolution and
-    apply the balanced per-pixel mask (test.py:39-59)."""
+    apply the balanced per-pixel mask (test.py:39-59). The pass is a
+    ``test`` span of the trainer's epoch; inside it each batch's host
+    upsample is an ``upsample`` span, and each batch's mask and metric
+    accumulation, and the final scoring, ``shot_metrics`` spans."""
     evaluator = DepthEvaluator()
     mask = test_data.get("mask")
     offset = 0
     data = {k: v for k, v in test_data.items() if k != "mask"}
-    for batch in eval_batches(data, batch_size):
-        count = batch.pop("count")
-        pred = trainer.predict_batch(state, batch, count)
-        depth = np.asarray(batch["target"])[:count]
-        if pred.shape[1:3] != depth.shape[1:3]:
-            nchw = torch.from_numpy(pred).permute(0, 3, 1, 2)
-            pred = F.interpolate(nchw, size=depth.shape[1:3], mode="bilinear",
-                                 align_corners=False).permute(0, 2, 3, 1).numpy()
-        if mask is not None:
-            m = mask[offset : offset + count]
-            m = m[..., None] if m.ndim == 3 else m
-            evaluator(pred[m], depth[m])
-        else:
-            evaluator(pred, depth)
-        offset += count
-    return evaluator.evaluate_shot()
+    with _span(trainer, "test"):
+        for batch in eval_batches(data, batch_size):
+            count = batch.pop("count")
+            pred = trainer.predict_batch(state, batch, count)
+            depth = np.asarray(batch["target"])[:count]
+            if pred.shape[1:3] != depth.shape[1:3]:
+                with _span(trainer, "upsample", count):
+                    nchw = torch.from_numpy(pred).permute(0, 3, 1, 2)
+                    pred = F.interpolate(nchw, size=depth.shape[1:3], mode="bilinear",
+                                         align_corners=False).permute(0, 2, 3, 1).numpy()
+            with _span(trainer, "shot_metrics", count):
+                if mask is not None:
+                    m = mask[offset : offset + count]
+                    m = m[..., None] if m.ndim == 3 else m
+                    evaluator(pred[m], depth[m])
+                else:
+                    evaluator(pred, depth)
+            offset += count
+        with _span(trainer, "shot_metrics"):
+            return evaluator.evaluate_shot()
 
 
 def build_data(config: NYUDConfig):
