@@ -49,6 +49,21 @@ class BucketMoments:
             has_hi=self.has_hi | other.has_hi,
         )
 
+    def add_(self, other: "BucketMoments") -> "BucketMoments":
+        """``self + other`` into ``self``'s tensors (the same bits)."""
+        self.count.add_(other.count)
+        self.total.add_(other.total)
+        self.total_sq.add_(other.total_sq)
+        self.has_lo.logical_or_(other.has_lo)
+        self.has_hi.logical_or_(other.has_hi)
+        return self
+
+    def zero_(self) -> "BucketMoments":
+        """The identity (:func:`zero_moments`) in ``self``'s tensors."""
+        for t in (self.count, self.total, self.total_sq, self.has_lo, self.has_hi):
+            t.zero_()
+        return self
+
     def mean_var(self):
         """Per-bucket mean and (torch-semantics) variance; NaN-free for n=0."""
         n = self.count[:, None]

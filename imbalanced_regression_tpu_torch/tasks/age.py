@@ -318,7 +318,8 @@ def run(config: ExperimentConfig) -> dict:
                    "train_seconds": train_dt,
                    "fds_pass_seconds": fds_dt, "host_rss_gb": rss, "host_peak_rss_gb": peak_rss,
                    **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
-                                              epochs={epoch}), trainer.graph_stats)}
+                                              epochs={epoch}), trainer.graph_stats,
+                                     trainer.pass_graph_stats)}
         writer.log_dict(scalars, epoch)
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})
         logger.info(

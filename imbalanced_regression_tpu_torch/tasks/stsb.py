@@ -375,7 +375,8 @@ def run(config: STSConfig) -> dict:
                              **step_log(recorder.closed("step", "input_wait",
                                                         trainer=trainer.trace_id,
                                                         since_ns=interval_ns),
-                                        trainer.graph_stats)}, val_check)
+                                        trainer.graph_stats, trainer.pass_graph_stats)},
+                            val_check)
             writer.log_dict(metric["overall"], val_check, prefix="val_")
             is_best = is_new_best(history)
             if is_best:

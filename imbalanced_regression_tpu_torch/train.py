@@ -67,6 +67,14 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   and anomaly mode (``enable_nan_debug``) stay eager. Adam is built fused
   and ``capturable`` on CUDA, so eager and graphed steps run the same
   kernels and agree bit for bit.
+- **Graphed stats pass**: where the step is graphed, each stats-pass batch
+  replays one captured graph of its device work (the augment, the
+  train-mode backbone, K3 and the addition into the pass's moments), keyed
+  by ``("pass", ...)`` and the shapes and dtypes it reads, in the same pool
+  and with the same eager first batch and capture on the second. The
+  moments are static tensors of :class:`StepGraphs`, zeroed at each pass's
+  start; the pass draws from one generator of the state's, seeded with the
+  epoch at each pass's start, as the eager pass's fresh one is.
 
 - **Data parallelism** (``mesh=``, :mod:`parallel.mesh`; the JAX
   Trainer's ``mesh``): each rank runs this trainer on its contiguous rows
@@ -89,6 +97,7 @@ generator in place and returns the same :class:`TrainState`.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -114,7 +123,7 @@ from imbalanced_regression_tpu_torch.fds import (
 from imbalanced_regression_tpu_torch.models.resnet import use_global_batch_norm
 from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
-from imbalanced_regression_tpu_torch.ops.moments import all_reduce_moments
+from imbalanced_regression_tpu_torch.ops.moments import BucketMoments, all_reduce_moments
 from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
 from imbalanced_regression_tpu_torch.utils.logging_tools import recorder
 
@@ -175,6 +184,8 @@ class TrainerConfig:
 # the FDS tables a step's calibration (K1, K2) reads
 _SMOOTH_TABLES = ("running_mean_last_epoch", "running_var_last_epoch",
                   "smoothed_mean_last_epoch", "smoothed_var_last_epoch")
+# what a stats-pass batch's device work reads of the batch
+_PASS_INPUTS = ("input", "target", "bucket_idx")
 
 
 def _signature(tree: dict) -> tuple:
@@ -188,23 +199,41 @@ def _leaves(tree: dict) -> list[torch.Tensor]:
 
 
 @dataclasses.dataclass
-class _Captured:
-    """One captured step: its graph, the static inputs it reads, the loss
-    and predictions it writes, the kernel launches of each
-    ``ck.KERNEL_WRAPPERS`` wrapper in it, and each parameter's gradient
-    tensor it writes."""
+class _Graph:
+    """One captured graph: the static inputs it reads, the kernel launches
+    of each ``ck.KERNEL_WRAPPERS`` wrapper in it and of K3's kernels by
+    name (``segment_moments.kernels``)."""
 
     graph: torch.cuda.CUDAGraph
     inputs: list[torch.Tensor]
+    launches: list[int]
+    kernels: collections.Counter
+
+    def run(self, batch: dict) -> None:
+        """Replay on ``batch`` (copied into the static inputs), counting
+        the graph's launches on the wrappers as eager calls count theirs."""
+        for static, t in zip(self.inputs, _leaves(batch)):
+            static.copy_(t)
+        self.graph.replay()
+        for fn, n in zip(ck.KERNEL_WRAPPERS, self.launches):
+            fn.launches += n
+        ck.segment_moments.kernels.update(self.kernels)
+
+
+@dataclasses.dataclass
+class _Captured(_Graph):
+    """One captured step: the loss and predictions it writes, and each
+    parameter's gradient tensor it writes."""
+
     loss: torch.Tensor
     pred: torch.Tensor
-    launches: list[int]
     grads: list[tuple[torch.Tensor, torch.Tensor]]
     smooth: bool
 
 
 class StepGraphs:
-    """A train state's captured steps, by graph key, in one memory pool.
+    """A train state's captured steps and stats-pass batches, by graph key,
+    in one memory pool.
 
     A captured step reads the addresses it was captured with, so what
     changes between steps is copied into them in place: the batch into the
@@ -214,20 +243,59 @@ class StepGraphs:
     transition never writes into the tensors of the old state). Each replay
     returns clones of the static loss and predictions, so a caller may keep
     them, and counts the graph's kernel launches on the wrappers, as the
-    eager step's calls do. :meth:`clear` drops every graph: whatever
-    replaces tensors a graph holds (the optimizer's ``load_state_dict``,
-    :func:`restore_state`, a new :meth:`Trainer.init_state`) calls it."""
+    eager step's calls do. A captured stats-pass batch adds its moments
+    into :attr:`moments` and draws from :attr:`pass_generator`, both made
+    once and reset at each pass's start (:meth:`pass_start`). The graphs
+    never replay at once, and each writes what it reads of the pool before
+    reading it, so one's temporaries may lie where another's outputs do (a
+    replay may overwrite the gradients that another step graph left in
+    ``p.grad``, until that graph replays). :meth:`clear` drops every
+    graph: whatever replaces tensors a graph holds (the optimizer's
+    ``load_state_dict``, :func:`restore_state`, a new
+    :meth:`Trainer.init_state`) calls it."""
 
     def __init__(self):
         self.clear()
 
     def clear(self) -> None:
-        self.entries: dict[tuple, _Captured] = {}
-        self.warmed: set[tuple] = set()  # keys whose eager warm-up step ran
+        self.entries: dict[tuple, _Graph] = {}
+        self.warmed: set[tuple] = set()  # keys whose eager warm-up step or batch ran
         self.tables: tuple[torch.Tensor, ...] | None = None
         self.tables_of: tuple[torch.Tensor, ...] | None = None
         self.pool = None
         self.last: _Captured | None = None  # the graph whose gradients p.grad holds
+        self.moments: BucketMoments | None = None  # the stats pass's, in place
+        self.pass_generator: torch.Generator | None = None
+
+    def pass_start(self, config: FDSConfig, device: torch.device,
+                   epoch: int) -> tuple[BucketMoments, torch.Generator]:
+        """The stats pass's moments, zeroed, and its generator, seeded with
+        ``epoch`` (so it draws as a fresh generator so seeded would)."""
+        if self.moments is None:
+            self.moments = fds_zero_moments(config, device)
+            self.pass_generator = torch.Generator(device=device)
+        else:
+            self.moments.zero_()
+        return self.moments, self.pass_generator.manual_seed(epoch)
+
+    def _capture(self, batch: dict, generator: torch.Generator, run: Callable):
+        """Capture ``run(inputs)`` on ``inputs``, static copies of
+        ``batch``, with ``generator``'s draws fresh on every replay.
+        Returns the graph, what ``run`` returned (tensors the graph writes)
+        and :class:`_Graph`'s fields: a capture launches nothing, so the
+        launches the wrappers counted in it are taken back."""
+        inputs = tree_map(torch.empty_like, batch)
+        before = [fn.launches for fn in ck.KERNEL_WRAPPERS]
+        kernels = ck.segment_moments.kernels.copy()
+        graph, out = self._record(generator, lambda: run(inputs))
+        launches = []
+        for fn, n in zip(ck.KERNEL_WRAPPERS, before):
+            launches.append(fn.launches - n)
+            fn.launches = n
+        added = ck.segment_moments.kernels - kernels
+        ck.segment_moments.kernels.clear()
+        ck.segment_moments.kernels.update(kernels)
+        return out, _Graph(graph, _leaves(inputs), launches, added)
 
     def capture(self, key: tuple, batch: dict, fds: FDSState | None, generator: torch.Generator,
                 params: list[torch.Tensor], update: Callable) -> _Captured:
@@ -235,20 +303,29 @@ class StepGraphs:
         predictions) on static copies of ``batch`` and, where ``fds`` is
         given, of its calibration tables; ``generator`` draws fresh numbers
         on every replay."""
-        inputs = tree_map(torch.empty_like, batch)
         if fds is not None:
             if self.tables is None:
                 self.tables_of = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
                 self.tables = tuple(t.clone() for t in self.tables_of)
             fds = fds.replace(**dict(zip(_SMOOTH_TABLES, self.tables)))
-        before = [fn.launches for fn in ck.KERNEL_WRAPPERS]
-        graph, (loss, pred) = self._record(generator, lambda: update(inputs, fds))
-        launches = []
-        for fn, n in zip(ck.KERNEL_WRAPPERS, before):  # captured, not launched
-            launches.append(fn.launches - n)
-            fn.launches = n
-        entry = _Captured(graph, _leaves(inputs), loss, pred, launches,
-                          [(p, p.grad) for p in params if p.grad is not None], fds is not None)
+        (loss, pred), graph = self._capture(batch, generator, lambda inputs: update(inputs, fds))
+        entry = _Captured(**vars(graph), loss=loss, pred=pred,
+                          grads=[(p, p.grad) for p in params if p.grad is not None],
+                          smooth=fds is not None)
+        self.entries[key] = entry
+        return entry
+
+    def capture_pass(self, key: tuple, batch: dict, generator: torch.Generator,
+                     run: Callable) -> _Graph:
+        """Capture ``run(batch)``, one stats-pass batch's work, which adds
+        into :attr:`moments` and returns nothing, on static copies of
+        ``batch``."""
+
+        def body(inputs):
+            run(inputs)
+            return ()
+
+        _, entry = self._capture(batch, generator, body)
         self.entries[key] = entry
         return entry
 
@@ -268,17 +345,13 @@ class StepGraphs:
     def replay(self, entry: _Captured, batch: dict, fds: FDSState | None):
         """Run ``entry`` on ``batch`` and the state's tables; returns fresh
         (loss, predictions)."""
-        for static, t in zip(entry.inputs, _leaves(batch)):
-            static.copy_(t)
         if entry.smooth:
             tables = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
             if any(a is not b for a, b in zip(tables, self.tables_of)):
                 for static, t in zip(self.tables, tables):
                     static.copy_(t)
                 self.tables_of = tables
-        entry.graph.replay()
-        for fn, n in zip(ck.KERNEL_WRAPPERS, entry.launches):
-            fn.launches += n
+        entry.run(batch)
         if self.last is not entry:
             for p, g in entry.grads:
                 p.grad = g
@@ -366,6 +439,8 @@ class Trainer:
         self._epoch = -1
         # how often the graphed step engages (see StepGraphs)
         self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
+        # how often the graphed stats-pass batch engages (Trainer._graphed_batch)
+        self.pass_graph_stats = {"captures": 0, "replays": 0, "eager": 0}
         self._graphs: StepGraphs | None = None  # those of the newest state
 
     def _span(self, name: str, epoch: int | None = None, rows: int = -1):
@@ -645,30 +720,76 @@ class Trainer:
 
     @torch.no_grad()
     def _fds_pass(self, state: TrainState, device_batches: Iterable[dict], epoch: int) -> TrainState:
+        """The pass as an ``fds_pass`` span, each batch a ``pass_batch``
+        span in it. On CUDA without a mesh (and outside anomaly mode) each
+        batch's device work is a replayed graph (:meth:`_graphed_batch`);
+        elsewhere it runs eagerly, and the pass draws from a fresh generator
+        seeded with ``epoch``."""
         cfg = self.fds_config
         if cfg is None or epoch < cfg.start_update:
             return state
         self._epoch = epoch
         with self._span("fds_pass", epoch):
-            moments = fds_zero_moments(cfg, self.device)
-            generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
+            graphed = graphable(self.device, self.mesh)
+            if graphed:
+                moments, generator = state.graphs.pass_start(cfg, self.device, epoch)
+            else:
+                moments = fds_zero_moments(cfg, self.device)
+                generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
             # train-mode backbone (BN batch stats update and live dropout,
             # like the reference's model.train() + no_grad stats pass),
             # pre-smooth encodings, over the augmented train loader
             # (imdb-wiki-dir/train.py:273)
             state.backbone.train()
             for b in device_batches:
-                x = b["input"]
-                if self.train_augment is not None:
-                    x = self.train_augment(x, generator)
-                encoding = state.backbone(x, generator=generator)
-                moments = moments + fds_bucket_moments(cfg, encoding, b["target"],
-                                                       b.get("bucket_idx"))
+                with self._span("pass_batch", epoch, len(b["target"])):
+                    if graphed:
+                        self._graphed_batch(state, b, moments, generator, epoch)
+                    else:
+                        self.pass_graph_stats["eager"] += 1
+                        moments = moments + self._batch_moments(state, b, generator)
             if self.mesh is not None:
                 moments = all_reduce_moments(moments, self.mesh)  # once a pass
             fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
             state.fds = fds_apply_moments(cfg, fds, moments, epoch)
         return state
+
+    def _batch_moments(self, state: TrainState, b: dict, generator) -> BucketMoments:
+        """One stats-pass batch's device work: augment, backbone, K3."""
+        x = b["input"]
+        if self.train_augment is not None:
+            x = self.train_augment(x, generator)
+        encoding = state.backbone(x, generator=generator)
+        return fds_bucket_moments(self.fds_config, encoding, b["target"], b.get("bucket_idx"))
+
+    def _graphed_batch(self, state: TrainState, b: dict, moments: BucketMoments,
+                       generator: torch.Generator, epoch: int) -> None:
+        """One stats-pass batch added into ``moments`` (the state's static
+        moments) as a replayed CUDA graph of ``state.graphs``, keyed by
+        ``("pass", ...)`` and the shapes and dtypes of what the batch's
+        work reads: a key's first batch runs eagerly, its second captures
+        (a ``pass_capture`` span), and each batch from the second on
+        replays (a ``pass_replay`` span)."""
+        graphs = state.graphs
+        b = {k: b[k] for k in _PASS_INPUTS if k in b}
+        key = ("pass", _signature(b))
+
+        def run(batch):
+            moments.add_(self._batch_moments(state, batch, generator))
+
+        entry = graphs.entries.get(key)
+        if entry is None:
+            if key not in graphs.warmed:
+                graphs.warmed.add(key)
+                self.pass_graph_stats["eager"] += 1
+                run(b)
+                return
+            with self._span("pass_capture", epoch):
+                entry = graphs.capture_pass(key, b, generator, run)
+            self.pass_graph_stats["captures"] += 1
+        with self._span("pass_replay", epoch):
+            entry.run(b)
+        self.pass_graph_stats["replays"] += 1
 
     @torch.no_grad()
     def predict_batch(self, state: TrainState, batch: dict, count: int | None = None) -> np.ndarray:

@@ -320,13 +320,15 @@ class SpanRecorder:
 recorder = SpanRecorder()  # the program's spans (see :class:`SpanRecorder`)
 
 
-def step_log(spans: list[Span], graph_stats: dict | None = None) -> dict:
+def step_log(spans: list[Span], graph_stats: dict | None = None,
+             pass_graph_stats: dict | None = None) -> dict:
     """The operator's view of a trainer's spans, for an epoch log: the
     median ``step`` span in ms (the host's time to dispatch a step) and the
     seconds spent in ``input_wait`` (the step's and the stats pass's wait
     for a staged batch), with the trainer's ``graph_stats`` where given
-    (its graphed steps' captures and replays and its eager steps so far);
-    empty where no step was recorded."""
+    (its graphed steps' captures and replays and its eager steps so far)
+    and its ``pass_graph_stats`` where given (its stats-pass batches
+    replayed and run eagerly so far); empty where no step was recorded."""
     steps = [s.ms for s in spans if s.name == "step"]
     if not steps:
         return {}
@@ -335,6 +337,9 @@ def step_log(spans: list[Span], graph_stats: dict | None = None) -> dict:
     if graph_stats is not None:
         log.update({"graph_captures": graph_stats["captures"],
                     "graph_replays": graph_stats["replays"], "eager_steps": graph_stats["eager"]})
+    if pass_graph_stats is not None:
+        log.update({"pass_graph_replays": pass_graph_stats["replays"],
+                    "pass_eager_batches": pass_graph_stats["eager"]})
     return log
 
 

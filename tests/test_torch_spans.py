@@ -109,15 +109,17 @@ def test_stats_passes_and_predict_record_their_spans():
     trainer, state = _trainer()
     state = trainer.fds_epoch_pass(state, iter(_batches(2)), 2)
     spans = recorder.closed(trainer=trainer.trace_id)
-    assert _names(spans) == ["input_wait", "input_wait", "fds_pass"]
-    assert all(s.parent is spans[-1] for s in spans[:2]) and spans[-1].parent is None
-    assert all(s.epoch == 2 for s in spans)
+    # each batch's wait, then the batch (a pass_batch span)
+    assert _names(spans) == ["input_wait", "pass_batch"] * 2 + ["fds_pass"]
+    assert all(s.parent is spans[-1] for s in spans[:4]) and spans[-1].parent is None
+    assert all(s.epoch == 2 for s in spans) and [s.rows for s in spans[1:4:2]] == [ROWS] * 2
     data = {k: np.concatenate([v, v]) for k, v in _batches(1)[0].items()}
     trainer.bind_device_data(data)
     state = trainer.fds_epoch_pass_indexed(state, iter([np.arange(4), np.arange(4, 12)]), 3)
     spans = recorder.closed(trainer=trainer.trace_id, epochs={3})
-    assert _names(spans) == ["gather", "gather", "fds_pass"]
-    assert [s.rows for s in spans[:2]] == [4, 8] and all(s.parent is spans[-1] for s in spans[:2])
+    assert _names(spans) == ["gather", "pass_batch"] * 2 + ["fds_pass"]
+    assert [s.rows for s in spans[:4]] == [4, 4, 8, 8]
+    assert all(s.parent is spans[-1] for s in spans[:4])
     # predictions carry the epoch the trainer last passed in; one read-back
     # a batch
     preds, _ = trainer.predict(state, iter(_batches(3, seed=2)))
@@ -180,8 +182,8 @@ def test_recording_off_records_nothing_and_changes_no_result():
                      len(recorder.closed(trainer=trainer.trace_id))))
     (loss_on, preds_on, weights_on, n_on), (loss_off, preds_off, weights_off, n_off) = runs
     # train_epoch: 3 waits, 3 steps, the read-back, the epoch; the pass: 2
-    # waits and itself; predict: 2 read-backs and itself
-    assert n_on == (3 * 2 + 2) + (2 + 1) + (2 + 1) and n_off == 0
+    # waits, 2 batches and itself; predict: 2 read-backs and itself
+    assert n_on == (3 * 2 + 2) + (2 * 2 + 1) + (2 + 1) and n_off == 0
     assert loss_on == loss_off
     np.testing.assert_array_equal(preds_on, preds_off)
     assert all(torch.equal(weights_on[k], weights_off[k]) for k in weights_on)
