@@ -2272,7 +2272,8 @@ def graph_side(make, graphed: bool, cell: str) -> dict:
         end.synchronize()
         host = [sp.ms for sp in recorder.closed("step", trainer=trainer.trace_id, since_ns=t0)]
         captures = [sp.ms for sp in recorder.closed("capture", trainer=trainer.trace_id)]
-        out = {"losses": losses + more, "digest": digest, "graph_stats": dict(trainer.graph_stats),
+        out = {"losses": losses + more, "digest": digest,
+               "graph_stats": {kind: dict(n) for kind, n in trainer.graph_stats.items()},
                "capture_ms": captures[0] if captures else None,
                "host_ms": statistics.median(host),
                "period_ms": start.elapsed_time(end) / GRAPH_TIMED,
@@ -2388,7 +2389,8 @@ def graph_phase() -> dict:
             graphed = graph_side(make, True, cell)
             assert graphed["losses"] == eager["losses"], (graphed["losses"], eager["losses"])
             assert graphed["digest"] == eager["digest"], f"{cell}: graphed and eager states differ"
-            assert graphed["graph_stats"]["replays"] == 5 + GRAPH_TIMED, graphed["graph_stats"]
+            replays = graphed["graph_stats"]["step"]["replays"]
+            assert replays == 5 + GRAPH_TIMED, graphed["graph_stats"]
             records[cell] = {side: {k: r[k] for k in ("host_ms", "period_ms", "capture_ms", "peak_gb")}
                              for side, r in (("eager", eager), ("graphed", graphed))}
             log(f"graph phase {cell}: bit-equal; {json.dumps(records[cell])}")

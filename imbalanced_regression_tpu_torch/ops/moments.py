@@ -40,17 +40,9 @@ class BucketMoments:
     has_lo: torch.Tensor
     has_hi: torch.Tensor
 
-    def __add__(self, other: "BucketMoments") -> "BucketMoments":
-        return BucketMoments(
-            count=self.count + other.count,
-            total=self.total + other.total,
-            total_sq=self.total_sq + other.total_sq,
-            has_lo=self.has_lo | other.has_lo,
-            has_hi=self.has_hi | other.has_hi,
-        )
-
     def add_(self, other: "BucketMoments") -> "BucketMoments":
-        """``self + other`` into ``self``'s tensors (the same bits)."""
+        """Accumulate ``other`` into ``self``'s tensors: counts and sums
+        added, edge gates or-ed."""
         self.count.add_(other.count)
         self.total.add_(other.total)
         self.total_sq.add_(other.total_sq)

@@ -80,12 +80,7 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, parse_config
-from imbalanced_regression_tpu_torch.utils.logging_tools import (
-    MetricsWriter,
-    host_memory_gb,
-    recorder,
-    step_log,
-)
+from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
 from imbalanced_regression_tpu_torch.utils.metrics import regression_metrics, shot_metrics
 
 logger = logging.getLogger(__name__)
@@ -297,8 +292,7 @@ def run(config: ExperimentConfig) -> dict:
         t1 = time.time()
         state = trainer.fds_epoch_pass(
             state, batch_iterator(train, config.batch_size, rng=fds_rng(epoch)), epoch)
-        if trainer.device.type == "cuda":
-            torch.cuda.synchronize(trainer.device)
+        trainer.synchronize()
         fds_dt = time.time() - t1
         overall, _ = validate(trainer, state, val, train_labels, config.batch_size)
         metric = overall["mse"] if config.loss == "mse" else overall["l1"]
@@ -317,9 +311,7 @@ def run(config: ExperimentConfig) -> dict:
                    "images_per_sec": throughput, "images_per_sec_per_rank": throughput / ranks,
                    "train_seconds": train_dt,
                    "fds_pass_seconds": fds_dt, "host_rss_gb": rss, "host_peak_rss_gb": peak_rss,
-                   **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
-                                              epochs={epoch}), trainer.graph_stats,
-                                     trainer.pass_graph_stats)}
+                   **trainer.epoch_log(epochs={epoch})}
         writer.log_dict(scalars, epoch)
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})
         logger.info(

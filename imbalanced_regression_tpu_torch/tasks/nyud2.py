@@ -30,6 +30,7 @@ refused when positive.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -74,12 +75,7 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
-from imbalanced_regression_tpu_torch.utils.logging_tools import (
-    MetricsWriter,
-    host_memory_gb,
-    recorder,
-    step_log,
-)
+from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, host_memory_gb
 from imbalanced_regression_tpu_torch.utils.metrics import DepthEvaluator
 
 logger = logging.getLogger(__name__)
@@ -172,11 +168,11 @@ def build_nyud_trainer(config: NYUDConfig, mesh: Mesh | None = None) -> Trainer:
 
 
 def _span(trainer, name: str, rows: int = -1):
-    """A span of ``trainer``'s (``utils.logging_tools.recorder``), of the
-    epoch it last stepped or passed in; a stand-in predictor without a
-    trace id records under none."""
-    return recorder.span(name, getattr(trainer, "trace_id", -1), getattr(trainer, "_epoch", -1),
-                         rows)
+    """A span of ``trainer``'s (:meth:`Trainer._span`, of the epoch it last
+    stepped or passed in); a stand-in predictor without spans records
+    none."""
+    span = getattr(trainer, "_span", None)
+    return contextlib.nullcontext() if span is None else span(name, rows=rows)
 
 
 def test_epoch(trainer, state, test_data, batch_size) -> dict:
@@ -314,8 +310,7 @@ def run(config: NYUDConfig) -> dict:
         t1 = time.time()
         state = trainer.fds_epoch_pass(
             state, batch_iterator(fds_subset, fds_batch, shuffle=False), epoch)
-        if trainer.device.type == "cuda":
-            torch.cuda.synchronize(trainer.device)
+        trainer.synchronize()
         fds_dt = time.time() - t1
         metric = test_epoch(trainer, state, test, config.test_batch_size)
         rmse = metric["overall"]["RMSE"]
@@ -331,9 +326,7 @@ def run(config: NYUDConfig) -> dict:
         scalars = {"train_loss": train_loss, "test_rmse": rmse, "images_per_sec": throughput,
                    "images_per_sec_per_rank": throughput / ranks, "train_seconds": train_dt, "fds_pass_seconds": fds_dt, "host_rss_gb": rss,
                    "host_peak_rss_gb": peak_rss,
-                   **step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id,
-                                              epochs={epoch}), trainer.graph_stats,
-                                     trainer.pass_graph_stats)}
+                   **trainer.epoch_log(epochs={epoch})}
         writer.log_dict(scalars, epoch)
         writer.log_dict(metric["overall"], epoch, prefix="test_")
         history.append({"epoch": epoch, "fds_calibrating": calibrating, **scalars})

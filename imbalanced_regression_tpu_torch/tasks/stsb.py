@@ -75,7 +75,7 @@ from imbalanced_regression_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from imbalanced_regression_tpu_torch.utils.config import ExperimentConfig, build_parser
-from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter, recorder, step_log
+from imbalanced_regression_tpu_torch.utils.logging_tools import MetricsWriter
 from imbalanced_regression_tpu_torch.utils.metrics import STSShotAverage
 
 logger = logging.getLogger(__name__)
@@ -242,11 +242,6 @@ def _log_shots(metric: dict, prefix: str):
                     m["num_samples"])
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(config: STSConfig) -> dict:
     """Train with validation checks, then test the best checkpoint. Returns
     the test metrics, the best validation MSE, the iteration count, the
@@ -321,7 +316,7 @@ def run(config: STSConfig) -> dict:
     train_losses, train_preds = [], []  # on the device until the next check
     checks, stats_seconds = [], []
     stopped = False
-    _sync(trainer.device)
+    trainer.synchronize()
     t_interval, stats_in_interval = time.perf_counter(), 0.0
     interval_ns = time.time_ns()  # the interval's spans start here
     while not stopped and n_pass < max_iters:
@@ -337,13 +332,13 @@ def run(config: STSConfig) -> dict:
         if n_pass // n_tr_batches > real_epoch:
             # epoch rollover: the FDS stats pass over the device-resident
             # split in drop-last batches (trainer.py:155-172)
-            _sync(trainer.device)
+            trainer.synchronize()
             t0 = time.perf_counter()
             state = trainer.fds_epoch_pass_indexed(
                 state, index_iterator(n_train, config.batch_size,
                                       rng=np.random.default_rng(config.seed * 10007 + real_epoch)),
                 real_epoch)
-            _sync(trainer.device)
+            trainer.synchronize()
             stats_seconds.append(time.perf_counter() - t0)
             stats_in_interval += stats_seconds[-1]
             real_epoch += 1
@@ -372,10 +367,7 @@ def run(config: STSConfig) -> dict:
             _log_shots(metric, "Val")
             writer.log_dict({"train_loss": tr_loss, "pairs_per_sec": pairs_per_sec,
                              "pairs_per_sec_per_rank": pairs_per_sec / ranks,
-                             **step_log(recorder.closed("step", "input_wait",
-                                                        trainer=trainer.trace_id,
-                                                        since_ns=interval_ns),
-                                        trainer.graph_stats, trainer.pass_graph_stats)},
+                             **trainer.epoch_log(since_ns=interval_ns)},
                             val_check)
             writer.log_dict(metric["overall"], val_check, prefix="val_")
             is_best = is_new_best(history)
@@ -393,7 +385,7 @@ def run(config: STSConfig) -> dict:
             if len(history) > window and max(history[-window:]) <= cur:
                 logger.info("Out of patience after %d val checks", val_check)
                 stopped = True
-            _sync(trainer.device)
+            trainer.synchronize()
             t_interval, stats_in_interval = time.perf_counter(), 0.0
             interval_ns = time.time_ns()
 

@@ -71,10 +71,11 @@ The PyTorch counterpart of the JAX package's ``train.py``. What carries over:
   replays one captured graph of its device work (the augment, the
   train-mode backbone, K3 and the addition into the pass's moments), keyed
   by ``("pass", ...)`` and the shapes and dtypes it reads, in the same pool
-  and with the same eager first batch and capture on the second. The
-  moments are static tensors of :class:`StepGraphs`, zeroed at each pass's
-  start; the pass draws from one generator of the state's, seeded with the
-  epoch at each pass's start, as the eager pass's fresh one is.
+  and through the same eager first call and capture on the second
+  (:meth:`Trainer._graphed`). Graphed or eager, the pass adds into static
+  moments of :class:`StepGraphs`, zeroed at each pass's start, and draws
+  from one generator of the state's, seeded with the epoch at each pass's
+  start.
 
 - **Data parallelism** (``mesh=``, :mod:`parallel.mesh`; the JAX
   Trainer's ``mesh``): each rank runs this trainer on its contiguous rows
@@ -125,7 +126,7 @@ from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.ops.losses import LOSS_REGISTRY
 from imbalanced_regression_tpu_torch.ops.moments import BucketMoments, all_reduce_moments
 from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
-from imbalanced_regression_tpu_torch.utils.logging_tools import recorder
+from imbalanced_regression_tpu_torch.utils.logging_tools import recorder, step_log
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -186,6 +187,15 @@ _SMOOTH_TABLES = ("running_mean_last_epoch", "running_var_last_epoch",
                   "smoothed_mean_last_epoch", "smoothed_var_last_epoch")
 # what a stats-pass batch's device work reads of the batch
 _PASS_INPUTS = ("input", "target", "bucket_idx")
+# each graphed kind's capture and replay spans (the benchmark's
+# graphed_step_pct, graphed_pass_pct and idle_in_dispatch_pct read them),
+# and the epoch log's tag of each of its counts (a pass logs no captures)
+_GRAPHED = {
+    "step": ("capture", "replay",
+             {"captures": "graph_captures", "replays": "graph_replays", "eager": "eager_steps"}),
+    "pass": ("pass_capture", "pass_replay",
+             {"replays": "pass_graph_replays", "eager": "pass_eager_batches"}),
+}
 
 
 def _signature(tree: dict) -> tuple:
@@ -200,59 +210,50 @@ def _leaves(tree: dict) -> list[torch.Tensor]:
 
 @dataclasses.dataclass
 class _Graph:
-    """One captured graph: the static inputs it reads, the kernel launches
-    of each ``ck.KERNEL_WRAPPERS`` wrapper in it and of K3's kernels by
-    name (``segment_moments.kernels``)."""
+    """One captured graph: the static inputs it reads, the outputs a replay
+    hands back (a step's loss and predictions; none for a stats-pass batch),
+    each parameter's gradient tensor it writes (none for a stats-pass
+    batch), and the kernel launches of each ``ck.KERNEL_WRAPPERS`` wrapper
+    in it and of K3's kernels by name (``segment_moments.kernels``)."""
 
     graph: torch.cuda.CUDAGraph
     inputs: list[torch.Tensor]
+    outputs: tuple[torch.Tensor, ...]
+    grads: list[tuple[torch.Tensor, torch.Tensor]]
     launches: list[int]
     kernels: collections.Counter
 
-    def run(self, batch: dict) -> None:
+    def run(self, batch: dict) -> tuple[torch.Tensor, ...]:
         """Replay on ``batch`` (copied into the static inputs), counting
-        the graph's launches on the wrappers as eager calls count theirs."""
+        the graph's launches on the wrappers as eager calls count theirs;
+        returns clones of the outputs, so a caller may keep them."""
         for static, t in zip(self.inputs, _leaves(batch)):
             static.copy_(t)
         self.graph.replay()
         for fn, n in zip(ck.KERNEL_WRAPPERS, self.launches):
             fn.launches += n
         ck.segment_moments.kernels.update(self.kernels)
-
-
-@dataclasses.dataclass
-class _Captured(_Graph):
-    """One captured step: the loss and predictions it writes, and each
-    parameter's gradient tensor it writes."""
-
-    loss: torch.Tensor
-    pred: torch.Tensor
-    grads: list[tuple[torch.Tensor, torch.Tensor]]
-    smooth: bool
+        return tuple([t.clone() for t in self.outputs])
 
 
 class StepGraphs:
     """A train state's captured steps and stats-pass batches, by graph key,
     in one memory pool.
 
-    A captured step reads the addresses it was captured with, so what
-    changes between steps is copied into them in place: the batch into the
-    graph's static inputs, and after each stats pass the new FDS tables
-    into the static tables that K1 and K2 read (the copy happens when the
-    state's tables are other tensors than those last copied; an FDS
-    transition never writes into the tensors of the old state). Each replay
-    returns clones of the static loss and predictions, so a caller may keep
-    them, and counts the graph's kernel launches on the wrappers, as the
-    eager step's calls do. A captured stats-pass batch adds its moments
+    A captured graph reads the addresses it was captured with, so what
+    changes between replays is copied into them in place: the batch into
+    the graph's static inputs, and after each stats pass the new FDS tables
+    into the static :attr:`tables` that a step's K1 and K2 read
+    (:meth:`refresh_tables`). A captured stats-pass batch adds its moments
     into :attr:`moments` and draws from :attr:`pass_generator`, both made
-    once and reset at each pass's start (:meth:`pass_start`). The graphs
-    never replay at once, and each writes what it reads of the pool before
-    reading it, so one's temporaries may lie where another's outputs do (a
-    replay may overwrite the gradients that another step graph left in
-    ``p.grad``, until that graph replays). :meth:`clear` drops every
-    graph: whatever replaces tensors a graph holds (the optimizer's
-    ``load_state_dict``, :func:`restore_state`, a new
-    :meth:`Trainer.init_state`) calls it."""
+    once and reset at each pass's start (:meth:`pass_start`), which the
+    eager pass uses too. The graphs never replay at once, and each writes
+    what it reads of the pool before reading it, so one's temporaries may
+    lie where another's outputs do (a replay may overwrite the gradients
+    that another step graph left in ``p.grad``, until that graph replays).
+    :meth:`clear` drops every graph: whatever replaces tensors a graph
+    holds (the optimizer's ``load_state_dict``, :func:`restore_state`, a
+    new :meth:`Trainer.init_state`) calls it."""
 
     def __init__(self):
         self.clear()
@@ -263,7 +264,7 @@ class StepGraphs:
         self.tables: tuple[torch.Tensor, ...] | None = None
         self.tables_of: tuple[torch.Tensor, ...] | None = None
         self.pool = None
-        self.last: _Captured | None = None  # the graph whose gradients p.grad holds
+        self.last: _Graph | None = None  # the graph whose gradients p.grad holds
         self.moments: BucketMoments | None = None  # the stats pass's, in place
         self.pass_generator: torch.Generator | None = None
 
@@ -278,16 +279,32 @@ class StepGraphs:
             self.moments.zero_()
         return self.moments, self.pass_generator.manual_seed(epoch)
 
-    def _capture(self, batch: dict, generator: torch.Generator, run: Callable):
+    def refresh_tables(self, fds: FDSState) -> None:
+        """Make :attr:`tables` hold ``fds``'s calibration tables: cloned on
+        first use, copied into when ``fds``'s are other tensors than those
+        last copied (an FDS transition never writes into the tensors of the
+        old state), so a replay makes no copy otherwise."""
+        tables = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
+        if self.tables is None:
+            self.tables = tuple(t.clone() for t in tables)
+        elif any(a is not b for a, b in zip(tables, self.tables_of)):
+            for static, t in zip(self.tables, tables):
+                static.copy_(t)
+        self.tables_of = tables
+
+    def capture(self, key: tuple, batch: dict, generator: torch.Generator, run: Callable,
+                param_groups: list[dict] = ()) -> _Graph:
         """Capture ``run(inputs)`` on ``inputs``, static copies of
-        ``batch``, with ``generator``'s draws fresh on every replay.
-        Returns the graph, what ``run`` returned (tensors the graph writes)
-        and :class:`_Graph`'s fields: a capture launches nothing, so the
-        launches the wrappers counted in it are taken back."""
+        ``batch``, with ``generator``'s draws fresh on every replay, as the
+        entry of ``key``. ``run`` returns the tensors a replay hands back;
+        the gradients it leaves in ``p.grad`` of the parameters of
+        ``param_groups`` (an optimizer's) are the graph's. A capture
+        launches nothing, so the launches the wrappers counted in it are
+        taken back."""
         inputs = tree_map(torch.empty_like, batch)
         before = [fn.launches for fn in ck.KERNEL_WRAPPERS]
         kernels = ck.segment_moments.kernels.copy()
-        graph, out = self._record(generator, lambda: run(inputs))
+        graph, outputs = self._record(generator, lambda: run(inputs))
         launches = []
         for fn, n in zip(ck.KERNEL_WRAPPERS, before):
             launches.append(fn.launches - n)
@@ -295,38 +312,10 @@ class StepGraphs:
         added = ck.segment_moments.kernels - kernels
         ck.segment_moments.kernels.clear()
         ck.segment_moments.kernels.update(kernels)
-        return out, _Graph(graph, _leaves(inputs), launches, added)
-
-    def capture(self, key: tuple, batch: dict, fds: FDSState | None, generator: torch.Generator,
-                params: list[torch.Tensor], update: Callable) -> _Captured:
-        """Capture ``update(batch, fds)`` (returning the loss and the
-        predictions) on static copies of ``batch`` and, where ``fds`` is
-        given, of its calibration tables; ``generator`` draws fresh numbers
-        on every replay."""
-        if fds is not None:
-            if self.tables is None:
-                self.tables_of = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
-                self.tables = tuple(t.clone() for t in self.tables_of)
-            fds = fds.replace(**dict(zip(_SMOOTH_TABLES, self.tables)))
-        (loss, pred), graph = self._capture(batch, generator, lambda inputs: update(inputs, fds))
-        entry = _Captured(**vars(graph), loss=loss, pred=pred,
-                          grads=[(p, p.grad) for p in params if p.grad is not None],
-                          smooth=fds is not None)
-        self.entries[key] = entry
-        return entry
-
-    def capture_pass(self, key: tuple, batch: dict, generator: torch.Generator,
-                     run: Callable) -> _Graph:
-        """Capture ``run(batch)``, one stats-pass batch's work, which adds
-        into :attr:`moments` and returns nothing, on static copies of
-        ``batch``."""
-
-        def body(inputs):
-            run(inputs)
-            return ()
-
-        _, entry = self._capture(batch, generator, body)
-        self.entries[key] = entry
+        entry = self.entries[key] = _Graph(
+            graph, _leaves(inputs), tuple(outputs),
+            [(p, p.grad) for g in param_groups for p in g["params"] if p.grad is not None],
+            launches, added)
         return entry
 
     def _record(self, generator: torch.Generator, run: Callable):
@@ -341,22 +330,6 @@ class StepGraphs:
         with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
             out = run()
         return graph, out
-
-    def replay(self, entry: _Captured, batch: dict, fds: FDSState | None):
-        """Run ``entry`` on ``batch`` and the state's tables; returns fresh
-        (loss, predictions)."""
-        if entry.smooth:
-            tables = tuple(getattr(fds, f) for f in _SMOOTH_TABLES)
-            if any(a is not b for a, b in zip(tables, self.tables_of)):
-                for static, t in zip(self.tables, tables):
-                    static.copy_(t)
-                self.tables_of = tables
-        entry.run(batch)
-        if self.last is not entry:
-            for p, g in entry.grads:
-                p.grad = g
-            self.last = entry
-        return entry.loss.clone(), entry.pred.clone()
 
 
 def graphable(device: torch.device, mesh: Mesh | None) -> bool:
@@ -437,14 +410,30 @@ class Trainer:
         # the epoch it last stepped or passed in, which its predictions carry
         self.trace_id = recorder.new_trainer(self.device)
         self._epoch = -1
-        # how often the graphed step engages (see StepGraphs)
-        self.graph_stats = {"captures": 0, "replays": 0, "eager": 0}
-        # how often the graphed stats-pass batch engages (Trainer._graphed_batch)
-        self.pass_graph_stats = {"captures": 0, "replays": 0, "eager": 0}
+        # how often each graphed kind (a step, a stats-pass batch) engages
+        self.graph_stats = {kind: {"captures": 0, "replays": 0, "eager": 0} for kind in _GRAPHED}
         self._graphs: StepGraphs | None = None  # those of the newest state
 
     def _span(self, name: str, epoch: int | None = None, rows: int = -1):
         return recorder.span(name, self.trace_id, self._epoch if epoch is None else epoch, rows)
+
+    def epoch_log(self, epochs=None, since_ns: int = 0) -> dict:
+        """The epoch log's view of this trainer: ``step_log`` of its
+        ``step`` and ``input_wait`` spans of ``epochs`` (a set; all where
+        None) opened at or after ``since_ns``, with each graphed kind's
+        counts so far; empty where no step was recorded."""
+        log = step_log(recorder.closed("step", "input_wait", trainer=self.trace_id,
+                                       epochs=epochs, since_ns=since_ns))
+        if log:
+            for kind, (_, _, tags) in _GRAPHED.items():
+                log.update({tag: self.graph_stats[kind][count] for count, tag in tags.items()})
+        return log
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on the device (nothing to wait for on
+        the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------ setup
     def init_state(self, seed: int = 0) -> TrainState:
@@ -590,37 +579,63 @@ class Trainer:
             if graphable(self.device, self.mesh):
                 loss, pred = self._graphed_update(state, b, epoch, lr)
             else:
-                self.graph_stats["eager"] += 1
+                self.graph_stats["step"]["eager"] += 1
                 loss, pred = self._update(state, b, state.fds, epoch)
             state.step += 1
             recorder.completed(span)
         return state, loss, pred
 
-    def _graphed_update(self, state: TrainState, b: dict, epoch: int, lr: float):
-        """The update as a replayed CUDA graph of ``state.graphs``, keyed by
-        the batch's shapes and dtypes, whether smoothing is on and ``lr``
-        (captured into the optimizer's kernels): a key's first step runs
-        eagerly, its second captures (a ``capture`` span), and each step
-        from the second on replays (a ``replay`` span)."""
-        graphs = state.graphs
-        smooth = self.fds_config is not None and epoch >= self.fds_config.start_smooth
-        key = (_signature(b), smooth, lr)
+    def _graphed(self, kind: str, graphs: StepGraphs, key: tuple, b: dict,
+                 generator: torch.Generator, run: Callable,
+                 param_groups: list[dict] = ()) -> tuple[_Graph | None, tuple]:
+        """``run(b)`` (a ``kind`` of :data:`_GRAPHED`: a step or a stats-pass
+        batch) as a replayed CUDA graph of ``graphs`` under ``key``: a key's
+        first call runs ``run(b)`` eagerly, its second captures ``run``
+        (:meth:`StepGraphs.capture`, in the kind's capture span), and each
+        call from the second on replays (in its replay span). Counts into
+        ``graph_stats[kind]``. Returns the graph that replayed (None for
+        the eager call) and what ``run`` returned, or the replay's clones
+        of it."""
+        capture_span, replay_span, _ = _GRAPHED[kind]
+        stats = self.graph_stats[kind]
         entry = graphs.entries.get(key)
         if entry is None:
             if key not in graphs.warmed:
                 graphs.warmed.add(key)
-                graphs.last = None  # p.grad now holds this step's gradients
-                self.graph_stats["eager"] += 1
-                return self._update(state, b, state.fds, epoch)
-            params = [p for g in state.optimizer.param_groups for p in g["params"]]
-            with self._span("capture", epoch):
-                entry = graphs.capture(key, b, state.fds if smooth else None, state.generator,
-                                       params, functools.partial(self._update, state, epoch=epoch))
-            self.graph_stats["captures"] += 1
-        with self._span("replay", epoch):
-            out = graphs.replay(entry, b, state.fds)
-        self.graph_stats["replays"] += 1
-        return out
+                stats["eager"] += 1
+                return None, run(b)
+            with self._span(capture_span):
+                entry = graphs.capture(key, b, generator, run, param_groups)
+            stats["captures"] += 1
+        with self._span(replay_span):
+            out = entry.run(b)
+        stats["replays"] += 1
+        return entry, out
+
+    def _graphed_update(self, state: TrainState, b: dict, epoch: int, lr: float):
+        """The update through :meth:`_graphed`, keyed by the batch's shapes
+        and dtypes, whether smoothing is on and ``lr`` (captured into the
+        optimizer's kernels). A smoothing step calibrates against the
+        static tables of ``state.graphs``, refreshed first; after a replay
+        ``p.grad`` is the graph's gradients."""
+        graphs = state.graphs
+        smooth = self.fds_config is not None and epoch >= self.fds_config.start_smooth
+        if smooth:
+            graphs.refresh_tables(state.fds)
+
+        def update(inputs):
+            fds = state.fds.replace(**dict(zip(_SMOOTH_TABLES, graphs.tables))) if smooth else None
+            return self._update(state, inputs, fds, epoch)
+
+        entry, (loss, pred) = self._graphed("step", graphs, (_signature(b), smooth, lr), b,
+                                            state.generator, update, state.optimizer.param_groups)
+        if entry is None:
+            graphs.last = None  # p.grad holds the warm-up step's gradients
+        elif graphs.last is not entry:
+            for p, g in entry.grads:
+                p.grad = g
+            graphs.last = entry
+        return loss, pred
 
     def _update(self, state: TrainState, b: dict, fds: FDSState | None, epoch: int):
         """The step's device work: augment, forward, FDS calibration
@@ -692,8 +707,7 @@ class Trainer:
                     state, loss, _ = self._step(state, b, epoch)
                     losses.append(loss)
                     if step_hook is not None and hook_every and (i + 1) % hook_every == 0:
-                        if self.device.type == "cuda":
-                            torch.cuda.synchronize(self.device)
+                        self.synchronize()
                         step_hook(state, i + 1)
             if not losses:
                 return state, 0.0
@@ -721,21 +735,24 @@ class Trainer:
     @torch.no_grad()
     def _fds_pass(self, state: TrainState, device_batches: Iterable[dict], epoch: int) -> TrainState:
         """The pass as an ``fds_pass`` span, each batch a ``pass_batch``
-        span in it. On CUDA without a mesh (and outside anomaly mode) each
-        batch's device work is a replayed graph (:meth:`_graphed_batch`);
-        elsewhere it runs eagerly, and the pass draws from a fresh generator
-        seeded with ``epoch``."""
+        span in it, adding into the moments and drawing from the generator
+        of ``state.graphs.pass_start``. On CUDA without a mesh (and outside
+        anomaly mode) each batch's device work goes through :meth:`_graphed`
+        under ``("pass", ...)`` and the shapes and dtypes of what it reads;
+        elsewhere it runs eagerly."""
         cfg = self.fds_config
         if cfg is None or epoch < cfg.start_update:
             return state
         self._epoch = epoch
         with self._span("fds_pass", epoch):
             graphed = graphable(self.device, self.mesh)
-            if graphed:
-                moments, generator = state.graphs.pass_start(cfg, self.device, epoch)
-            else:
-                moments = fds_zero_moments(cfg, self.device)
-                generator = self._draws(torch.Generator(device=self.device).manual_seed(epoch))
+            moments, generator = state.graphs.pass_start(cfg, self.device, epoch)
+            generator = self._draws(generator)
+
+            def run(batch):
+                moments.add_(self._batch_moments(state, batch, generator))
+                return ()
+
             # train-mode backbone (BN batch stats update and live dropout,
             # like the reference's model.train() + no_grad stats pass),
             # pre-smooth encodings, over the augmented train loader
@@ -744,10 +761,12 @@ class Trainer:
             for b in device_batches:
                 with self._span("pass_batch", epoch, len(b["target"])):
                     if graphed:
-                        self._graphed_batch(state, b, moments, generator, epoch)
+                        b = {k: b[k] for k in _PASS_INPUTS if k in b}
+                        self._graphed("pass", state.graphs, ("pass", _signature(b)), b,
+                                      generator, run)
                     else:
-                        self.pass_graph_stats["eager"] += 1
-                        moments = moments + self._batch_moments(state, b, generator)
+                        self.graph_stats["pass"]["eager"] += 1
+                        run(b)
             if self.mesh is not None:
                 moments = all_reduce_moments(moments, self.mesh)  # once a pass
             fds = fds_update_last_epoch_stats(cfg, state.fds, epoch)
@@ -761,35 +780,6 @@ class Trainer:
             x = self.train_augment(x, generator)
         encoding = state.backbone(x, generator=generator)
         return fds_bucket_moments(self.fds_config, encoding, b["target"], b.get("bucket_idx"))
-
-    def _graphed_batch(self, state: TrainState, b: dict, moments: BucketMoments,
-                       generator: torch.Generator, epoch: int) -> None:
-        """One stats-pass batch added into ``moments`` (the state's static
-        moments) as a replayed CUDA graph of ``state.graphs``, keyed by
-        ``("pass", ...)`` and the shapes and dtypes of what the batch's
-        work reads: a key's first batch runs eagerly, its second captures
-        (a ``pass_capture`` span), and each batch from the second on
-        replays (a ``pass_replay`` span)."""
-        graphs = state.graphs
-        b = {k: b[k] for k in _PASS_INPUTS if k in b}
-        key = ("pass", _signature(b))
-
-        def run(batch):
-            moments.add_(self._batch_moments(state, batch, generator))
-
-        entry = graphs.entries.get(key)
-        if entry is None:
-            if key not in graphs.warmed:
-                graphs.warmed.add(key)
-                self.pass_graph_stats["eager"] += 1
-                run(b)
-                return
-            with self._span("pass_capture", epoch):
-                entry = graphs.capture_pass(key, b, generator, run)
-            self.pass_graph_stats["captures"] += 1
-        with self._span("pass_replay", epoch):
-            entry.run(b)
-        self.pass_graph_stats["replays"] += 1
 
     @torch.no_grad()
     def predict_batch(self, state: TrainState, batch: dict, count: int | None = None) -> np.ndarray:

@@ -67,8 +67,8 @@ def test_fds_sequence_matches_jax(rng, grouping, kw):
             feats, labels, bidx = _batch(rng, grouping, 48, tcfg.feature_dim, tcfg)
             jm = jm + jfds.fds_bucket_moments(jcfg, feats, labels,
                                               None if bidx is None else jnp.asarray(bidx))
-            tm = tm + fds.fds_bucket_moments(tcfg, T(feats), T(labels),
-                                             None if bidx is None else T(bidx))
+            tm.add_(fds.fds_bucket_moments(tcfg, T(feats), T(labels),
+                                           None if bidx is None else T(bidx)))
         jstate = jfds.fds_apply_moments(jcfg, jfds.fds_update_last_epoch_stats(jcfg, jstate, epoch),
                                         jm, epoch)
         tstate = fds.fds_apply_moments(tcfg, fds.fds_update_last_epoch_stats(tcfg, tstate, epoch),

@@ -1,10 +1,12 @@
-"""The graphed FDS stats pass (``train.py`` ``Trainer._graphed_batch``):
+"""The graphed FDS stats pass (``train.py`` ``Trainer._graphed``, kind ``pass``):
 where it engages (where the step is graphed: CUDA without a mesh, outside
 anomaly mode), its key (``("pass", ...)`` and the shapes and dtypes of the
 batch's input, target and bucket index), the eager, capture and replay
 batches of set-up-sized and window-sized passes, the ``pass_batch``,
-``pass_capture`` and ``pass_replay`` spans, ``pass_graph_stats`` and the
-``step_log`` keys, and the pass graphs dropped with the step's.
+``pass_capture`` and ``pass_replay`` spans, ``graph_stats["pass"]`` and
+the ``Trainer.epoch_log`` keys, and the pass graphs dropped with the
+step's. The STS-B driver's logged pass counts are a case of
+``test_sts_driver_logs_the_graph_counts`` in ``test_torch_graphed_step.py``.
 
 On the CPU a stand-in graph (``FakeGraph`` of
 ``test_torch_graphed_step.py``) replays by running the captured batch
@@ -23,15 +25,12 @@ also run on a machine with only PyTorch:
     python -m pytest --noconftest tests/test_torch_graphed_pass.py -q -m cuda
 """
 
-import json
-import os
-
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 from test_torch_graphed_step import (
-    FakeGraph,
+    _fake_record,
     bilstm_data,
     bilstm_trainer,
     resnet_data,
@@ -83,11 +82,6 @@ def deterministic():
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     yield
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
-
-
-def _fake_record(self, generator, run):
-    outputs = (torch.empty(0), torch.empty(0))
-    return FakeGraph(run, outputs), outputs
 
 
 @pytest.fixture
@@ -236,8 +230,8 @@ def test_pass_runs_eagerly_on_the_cpu_under_a_mesh_and_in_anomaly_mode(where, mo
     """The pass asks ``graphable``: on the CPU it is false; with it made
     true for every device without a mesh (the stand-in graphs), a one-rank
     mesh and anomaly mode still run every batch eagerly, each a
-    ``pass_batch`` span with no capture or replay inside, into moments of
-    their own."""
+    ``pass_batch`` span with no capture or replay inside, and no pass graph
+    is warmed, captured or replayed."""
     real = train.graphable
     if where != "cpu":  # the card's answer, on the CPU
         monkeypatch.setattr(train, "graphable", lambda device, mesh: real(torch.device("cuda"),
@@ -255,9 +249,9 @@ def test_pass_runs_eagerly_on_the_cpu_under_a_mesh_and_in_anomaly_mode(where, mo
     finally:
         if mesh is not None:
             dist.destroy_process_group()
-    assert trainer.pass_graph_stats == {"captures": 0, "replays": 0, "eager": 5}
+    assert trainer.graph_stats["pass"] == {"captures": 0, "replays": 0, "eager": 5}
     assert kinds(trainer) == ["eager"] * 5
-    assert run.state.graphs.entries == {} and run.state.graphs.moments is None
+    assert run.state.graphs.entries == {} and run.state.graphs.warmed == set()
     assert [s.rows for s in recorder.closed("pass_batch", trainer=trainer.trace_id)] == [ROWS] * 5
 
 
@@ -272,7 +266,7 @@ def test_pass_graphs_engage_where_the_step_is_graphed(monkeypatch):
     run.stats_pass(0)
     run.stats_pass(1, batches=3)
     assert kinds(trainer) == ["eager", "capture", "replay", "replay", "replay"]
-    assert trainer.pass_graph_stats == {"captures": 1, "replays": 4, "eager": 1}
+    assert trainer.graph_stats["pass"] == {"captures": 1, "replays": 4, "eager": 1}
 
 
 @pytest.mark.parametrize("name", ["resnet", "bilstm"])
@@ -287,15 +281,15 @@ def test_graphed_passes_equal_eager_passes(name, fake_graphs, monkeypatch, appli
     got = Run(graphed, data, indexed, rows)
     set_up_and_window(got)
     assert kinds(graphed) == ["eager", "capture"] + ["replay"] * 7
-    assert graphed.pass_graph_stats == {"captures": 1, "replays": 8, "eager": 1}
+    assert graphed.graph_stats["pass"] == {"captures": 1, "replays": 8, "eager": 1}
     got_applied = list(applied)
     applied.clear()
     eager(monkeypatch)
     plain = make("cpu")
     want = Run(plain, data, indexed, rows)
     set_up_and_window(want)
-    assert plain.pass_graph_stats == {"captures": 0, "replays": 0, "eager": 9}
-    assert plain.graph_stats["replays"] == 0
+    assert plain.graph_stats["pass"] == {"captures": 0, "replays": 0, "eager": 9}
+    assert plain.graph_stats["step"]["replays"] == 0
     assert_passes_equal(got.state, want.state, got_applied, list(applied))
     assert torch.equal(got.state.generator.get_state(), want.state.generator.get_state())
 
@@ -323,7 +317,8 @@ def test_spans_and_counts_of_the_graphed_pass(fake_graphs):
     """``pass_batch`` spans (with their rows) inside the ``fds_pass`` span,
     each capture and replay inside its batch; the pass opens no ``capture``
     or ``replay`` span, so the steps' replay count (``graphed_step_pct``'s)
-    is the graphed steps' alone; ``step_log`` reports the pass counts."""
+    is the graphed steps' alone; ``Trainer.epoch_log`` reports the pass
+    counts, ``step_log`` of the spans alone none."""
     trainer = resnet_trainer("cpu")
     run = Run(trainer, resnet_data(), indexed=False)
     set_up_and_window(run)
@@ -339,13 +334,12 @@ def test_spans_and_counts_of_the_graphed_pass(fake_graphs):
     assert all(s.start_ns >= s.parent.start_ns and s.end_ns <= s.parent.end_ns
                for s in replays + [capture])
     step_replays = [s for s in spans if s.name == "replay"]
-    assert len(step_replays) == trainer.graph_stats["replays"] == 2
+    assert len(step_replays) == trainer.graph_stats["step"]["replays"] == 2
     assert all(s.parent.name == "step" for s in step_replays)
     assert not [s for s in spans if s.name == "capture" and s.parent.name != "step"]
-    log = step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id),
-                   trainer.graph_stats, trainer.pass_graph_stats)
+    log = trainer.epoch_log()
     assert (log["pass_graph_replays"], log["pass_eager_batches"]) == (8, 1)
-    assert "pass_graph_replays" not in step_log(spans, trainer.graph_stats)
+    assert "pass_graph_replays" not in step_log(spans)
 
 
 def test_pass_graphs_dropped_with_the_step_graphs(fake_graphs):
@@ -374,38 +368,6 @@ def test_pass_graphs_dropped_with_the_step_graphs(fake_graphs):
     assert run.state.graphs is not graphs
     run.stats_pass(3)
     assert kinds(trainer) == ["eager", "capture"] * 4
-
-
-def test_sts_driver_logs_the_pass_counts(tmp_path, monkeypatch):
-    """The STS-B driver's ``metrics.jsonl`` counts eager stats-pass batches
-    on the CPU, and with stand-in graphs one eager batch and the rest
-    replayed; the two runs' results are equal."""
-    from torch_stsb_tiny import write_tiny_tsvs
-
-    from imbalanced_regression_tpu_torch.tasks import stsb
-
-    write_tiny_tsvs(str(tmp_path / "data"), n_train=40, n_eval=10)
-
-    def run(root):
-        argv = ["--data_dir", str(tmp_path / "data"), "--device", "cpu", "--d_word", "8",
-                "--d_hid", "8", "--n_layers_enc", "1", "--max_seq_len", "10", "--batch_size", "8",
-                "--val_interval", "6", "--max_vals", "2", "--lr", "1e-2", "--glove", "0",
-                "--fds", "--lds", "--reweight", "inverse", "--store_root", str(tmp_path / root),
-                "--cache_dir", str(tmp_path / "cache")]
-        result = stsb.main(argv)
-        store = os.path.join(str(tmp_path / root), stsb.parse_sts_config(argv).derived_store_name())
-        with open(os.path.join(store, "metrics.jsonl")) as fh:
-            logged = [json.loads(line) for line in fh]
-        last = {r["tag"]: r["value"] for r in logged if r["step"] == 2}
-        return result, (last["pass_graph_replays"], last["pass_eager_batches"])
-
-    plain, (replays, batches) = run("eager")
-    assert replays == 0 and batches >= 2
-    monkeypatch.setattr(train, "graphable", lambda device, mesh: mesh is None)
-    monkeypatch.setattr(train.StepGraphs, "_record", _fake_record)
-    graphed, counts = run("graphed")
-    assert counts == (batches - 1, 1)
-    assert graphed["test"] == plain["test"] and graphed["val_history"] == plain["val_history"]
 
 
 # ----------------------------------------------------------- card tests
@@ -438,8 +400,8 @@ def test_graphed_passes_bit_equal_to_eager_on_card(cuda_device, deterministic, m
     graphed = make(cuda_device)
     got = _two_passes(graphed, data, indexed, rows)
     got_counts, got_applied = _counts(), list(applied)
-    assert graphed.pass_graph_stats == {"captures": 1, "replays": 5, "eager": 1}
-    assert graphed.graph_stats == {"captures": 1, "replays": 2, "eager": 1}
+    assert graphed.graph_stats["pass"] == {"captures": 1, "replays": 5, "eager": 1}
+    assert graphed.graph_stats["step"] == {"captures": 1, "replays": 2, "eager": 1}
     assert kinds(graphed) == ["eager", "capture"] + ["replay"] * 4
     eager(monkeypatch)
     applied.clear()

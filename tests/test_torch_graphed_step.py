@@ -3,7 +3,8 @@
 eagerly), its key (the batch's shapes and dtypes, smoothing, the lr), the
 graphs dropped by ``restore_state``, the optimizer's ``load_state_dict``
 and a new ``init_state``, the ``capture`` and ``replay`` spans and the
-counts in ``step_log`` and a driver's ``metrics.jsonl``.
+counts in ``Trainer.epoch_log`` and the STS-B driver's ``metrics.jsonl``
+(the step's and the stats pass's).
 
 On the CPU a stand-in graph (``FakeGraph``) replays by running the
 captured update again on the graph's static inputs and tables, so the
@@ -240,7 +241,7 @@ def test_graphable_only_on_cuda_without_mesh_or_anomaly(device, mesh, anomaly, w
 def test_cpu_steps_run_eagerly():
     trainer = resnet_trainer("cpu")
     state, _ = run_across_a_stats_pass(trainer, resnet_data())
-    assert trainer.graph_stats == {"captures": 0, "replays": 0, "eager": 6}
+    assert trainer.graph_stats["step"] == {"captures": 0, "replays": 0, "eager": 6}
     assert state.graphs.entries == {} and kinds(trainer) == ["eager"] * 6
     assert not recorder.closed("capture", "replay", trainer=trainer.trace_id)
 
@@ -254,12 +255,12 @@ def test_graphed_steps_equal_eager_across_a_stats_pass(family, fake_graphs, monk
                            else (bilstm_trainer, bilstm_data(), True))
     graphed = make("cpu")
     got_state, got = run_across_a_stats_pass(graphed, data, indexed=indexed)
-    assert graphed.graph_stats == {"captures": 1, "replays": 5, "eager": 1}
+    assert graphed.graph_stats["step"] == {"captures": 1, "replays": 5, "eager": 1}
     assert kinds(graphed) == ["eager", "capture", "replay", "replay", "replay", "replay"]
     eager(monkeypatch)
     plain = make("cpu")
     want_state, want = run_across_a_stats_pass(plain, data, indexed=indexed)
-    assert plain.graph_stats == {"captures": 0, "replays": 0, "eager": 6}
+    assert plain.graph_stats["step"] == {"captures": 0, "replays": 0, "eager": 6}
     assert_outputs_equal(got, want)
     assert_states_equal(got_state, want_state)
 
@@ -281,7 +282,7 @@ def test_key_is_shapes_smoothing_and_lr(fake_graphs):
     keys = {(key[0][0][1][0], key[1], key[2]) for key in state.graphs.entries}
     full, six, lr2 = (ROWS, IMG, IMG, 3), (6, IMG, IMG, 3), 1e-3 * 0.1 ** 1
     assert keys == {(full, False, 1e-3), (full, True, 1e-3), (full, True, lr2), (six, True, lr2)}
-    assert trainer.graph_stats == {"captures": 4, "replays": 6, "eager": 4}
+    assert trainer.graph_stats["step"] == {"captures": 4, "replays": 6, "eager": 4}
 
 
 def test_graphs_dropped_on_restore_optimizer_load_and_init_state(fake_graphs):
@@ -324,43 +325,66 @@ def test_spans_and_step_log_report_the_graphed_steps(fake_graphs):
     assert capture.parent is steps[1] and [s.parent for s in replays] == steps[1:]
     assert all(s.epoch == 4 and s.start_ns >= s.parent.start_ns and s.end_ns <= s.parent.end_ns
                for s in replays + [capture])
-    log = step_log(recorder.closed("step", "input_wait", trainer=trainer.trace_id),
-                   trainer.graph_stats)
+    log = trainer.epoch_log()
     assert (log["graph_captures"], log["graph_replays"], log["eager_steps"]) == (
         1, len(steps) - 1, 1)
     assert "graph_captures" not in step_log(spans)
 
 
-def test_sts_driver_logs_the_graph_counts(tmp_path, monkeypatch):
-    """The STS-B driver's ``metrics.jsonl`` counts eager steps on the CPU,
-    and with stand-in graphs captures and replays; the two runs' results
-    are equal."""
+@pytest.fixture(scope="module")
+def sts_driver_runs(tmp_path_factory):
+    """The STS-B driver run eagerly on the CPU, then with stand-in graphs:
+    each run's result and the tags it logged at its last validation
+    check."""
     from torch_stsb_tiny import write_tiny_tsvs
 
     from imbalanced_regression_tpu_torch.tasks import stsb
 
-    write_tiny_tsvs(str(tmp_path / "data"), n_train=40, n_eval=10)
+    tmp = tmp_path_factory.mktemp("sts_driver")
+    write_tiny_tsvs(str(tmp / "data"), n_train=40, n_eval=10)
 
     def run(root):
-        argv = ["--data_dir", str(tmp_path / "data"), "--device", "cpu", "--d_word", "8",
+        argv = ["--data_dir", str(tmp / "data"), "--device", "cpu", "--d_word", "8",
                 "--d_hid", "8", "--n_layers_enc", "1", "--max_seq_len", "10", "--batch_size", "8",
                 "--val_interval", "6", "--max_vals", "2", "--lr", "1e-2", "--glove", "0",
-                "--fds", "--lds", "--reweight", "inverse", "--store_root", str(tmp_path / root),
-                "--cache_dir", str(tmp_path / "cache")]
+                "--fds", "--lds", "--reweight", "inverse", "--store_root", str(tmp / root),
+                "--cache_dir", str(tmp / "cache")]
         result = stsb.main(argv)
-        store = os.path.join(str(tmp_path / root), stsb.parse_sts_config(argv).derived_store_name())
+        store = os.path.join(str(tmp / root), stsb.parse_sts_config(argv).derived_store_name())
         with open(os.path.join(store, "metrics.jsonl")) as fh:
             logged = [json.loads(line) for line in fh]
-        last = {r["tag"]: r["value"] for r in logged if r["step"] == 2}
-        return result, (last["graph_captures"], last["graph_replays"], last["eager_steps"])
+        return result, {r["tag"]: r["value"] for r in logged if r["step"] == 2}
 
-    plain, plain_counts = run("eager")
-    assert plain_counts == (0, 0, 12)
-    monkeypatch.setattr(train, "graphable", lambda device, mesh: mesh is None)
-    monkeypatch.setattr(train.StepGraphs, "_record", _fake_record)
-    graphed, counts = run("graphed")
-    # 12 steps; smoothing from epoch 1 on: two keys, each warmed, captured
-    assert counts == (2, 10, 2)
+    # a module-scoped fixture runs before the autouse thread count is set
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        plain = run("eager")
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(train, "graphable", lambda device, mesh: mesh is None)
+            mp.setattr(train.StepGraphs, "_record", _fake_record)
+            graphed = run("graphed")
+    finally:
+        torch.set_num_threads(before)
+    return plain, graphed
+
+
+@pytest.mark.parametrize("kind", ["step", "pass"])
+def test_sts_driver_logs_the_graph_counts(kind, sts_driver_runs):
+    """The STS-B driver's ``metrics.jsonl`` counts eager steps and
+    stats-pass batches on the CPU; with stand-in graphs, the steps'
+    warm-ups, captures and replays, and the pass's one eager batch and
+    replays of the rest; the two runs' results are equal."""
+    (plain, plain_log), (graphed, log) = sts_driver_runs
+    if kind == "step":
+        tags = ("graph_captures", "graph_replays", "eager_steps")
+        assert tuple(plain_log[t] for t in tags) == (0, 0, 12)
+        # 12 steps; smoothing from epoch 1 on: two keys, each warmed, captured
+        assert tuple(log[t] for t in tags) == (2, 10, 2)
+    else:
+        batches = plain_log["pass_eager_batches"]
+        assert plain_log["pass_graph_replays"] == 0 and batches >= 2
+        assert (log["pass_graph_replays"], log["pass_eager_batches"]) == (batches - 1, 1)
     assert graphed["test"] == plain["test"] and graphed["val_history"] == plain["val_history"]
 
 
@@ -411,7 +435,7 @@ def test_graphed_steps_bit_equal_to_eager_on_card(cuda_device, deterministic, mo
     got_state, got = run_across_a_stats_pass(graphed, data, indexed=indexed)
     torch.cuda.synchronize()
     got_launches = _launches()
-    assert graphed.graph_stats == {"captures": 1, "replays": 5, "eager": 1}
+    assert graphed.graph_stats["step"] == {"captures": 1, "replays": 5, "eager": 1}
     eager(monkeypatch)
     ck.reset_launch_counts()
     plain = make(cuda_device)
@@ -465,7 +489,7 @@ def test_depth_steps_bit_equal_to_eager_on_card(cuda_device, deterministic, monk
     graphed = make(cuda_device)
     got_state, got = run_across_a_stats_pass(graphed, data, rows=4)
     got_launches = _launches()
-    assert graphed.graph_stats == {"captures": 1, "replays": 5, "eager": 1}
+    assert graphed.graph_stats["step"] == {"captures": 1, "replays": 5, "eager": 1}
     eager(monkeypatch)
     ck.reset_launch_counts()
     want_state, want = run_across_a_stats_pass(make(cuda_device), data, rows=4)

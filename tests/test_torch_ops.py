@@ -260,7 +260,7 @@ def test_moments_valid_edges_and_add(rng):
                             edge_labels=(jnp.asarray(is_lo), jnp.asarray(is_hi)), use_pallas=False)
     np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
     assert bool(got.has_lo) == bool(want.has_lo) and bool(got.has_hi) == bool(want.has_hi)
-    total = zero_moments(5, 4, device="cpu") + got + got
+    total = zero_moments(5, 4, device="cpu").add_(got).add_(got)
     np.testing.assert_allclose(total.total.numpy(), 2 * got.total.numpy(), rtol=1e-6)
     assert bool(total.has_hi) == bool(got.has_hi)
     # masking a row out equals leaving it out; float32 sums of the same terms

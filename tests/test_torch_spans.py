@@ -190,6 +190,8 @@ def test_recording_off_records_nothing_and_changes_no_result():
 
 
 def test_step_log_is_the_median_step_and_the_waits():
+    """``step_log`` of the spans, and the trainer's epoch log: those two
+    values and its graph counts (all eager on the CPU)."""
     trainer, state = _trainer()
     state, _ = trainer.train_epoch(state, iter(_batches(3)), 6)
     state = trainer.fds_epoch_pass(state, iter(_batches(2)), 6)
@@ -200,6 +202,12 @@ def test_step_log_is_the_median_step_and_the_waits():
     waits = [s.ms for s in spans if s.name == "input_wait"]
     assert len(waits) == 5 and log["input_wait_seconds"] == pytest.approx(sum(waits) / 1e3)
     assert step_log([]) == {}
+    assert trainer.epoch_log(epochs={6}) == {
+        **log, "graph_captures": 0, "graph_replays": 0, "eager_steps": 3,
+        "pass_graph_replays": 0, "pass_eager_batches": 2}
+    assert trainer.epoch_log(epochs={7}) == {}
+    last = [s for s in spans if s.name == "step"][-1]
+    assert trainer.epoch_log(since_ns=last.start_ns)["step_host_ms"] == last.ms
 
 
 def test_profiler_sees_the_spans_as_ranges():
