@@ -54,7 +54,11 @@ Phases:
    of batch 128 (41 an epoch), a validation check every 30, two stats
    passes; K1 and K2 run in the 49 steps from epoch 1 on, the last 8 with
    the first pass's statistics (the snapshot a step calibrates with lags
-   one pass, as in the reference);
+   one pass, as in the reference); the LSTM cell kernels launch
+   ``n_layers_enc x max_seq_len`` times forward in each train step,
+   stats-pass batch and evaluation batch, and as many times backward in
+   each train step (phase 12 too: its killed and resumed runs together as
+   phase 11, its ``--evaluate`` the test batches' forwards);
 12. STS-B resume: the phase-11 run killed right after validation check 1
    wrote its checkpoint (the validation history inside it) and resumed
    with ``--resume``; validation history, iterations, test metrics and both
@@ -85,8 +89,8 @@ Phases:
    ``cudnn.deterministic`` (within 2^-6 of the largest magnitude; whether
    bit-equal is logged), a batch of another size refused, export, load and
    call times and artifact bytes logged; then ``tools/serve_bench.py`` on
-   the age store at batches 1, 8, 32 and 128. No FDS kernel may launch
-   during the phase;
+   the age store at batches 1, 8, 32 and 128. No FDS kernel and no LSTM
+   cell backward may launch during the phase;
 15. data parallelism (``parallel/``) on the card: (a) the age path of
    phase 4 at a global batch of 128 for two epochs on two ranks sharing
    the card through gloo (``--num_devices 2 --dist_backend gloo``, which
@@ -161,6 +165,14 @@ boundary of ``calibrate_plan``'s two forms (``calibrate_regimes``: the
 factored form's least rows and one row short, at D = 128 and at D = 130,
 the scalar path). Every K1/K2 record is timed with the statistics cold
 (``cold_tables``), as a train step finds them; x stays warm.
+
+Phase 2 also holds the LSTM cell kernels (``csrc/lstm_cell.cu``) against
+the plain cell at the STS-B cell's shape (512 rows, H = 1500, 40 steps,
+bf16) and times them forward (with and without the saved gates) and
+backward beside ATen's fused cell (``torch._thnn_fused_lstm_cell`` and
+``_thnn_fused_lstm_cell_backward_impl``) on the same gates, then counts a
+full-width layer's cell launches (``lstm_cell_phase``). Its records go
+into the ``kernels`` line with the launches of phases 11 and 12.
 
 Phase 2 also times the per-node floor of a replayed CUDA graph (a
 one-element ``add_``), which bounds the device time of a kernel at the age
@@ -309,11 +321,18 @@ GRAPH_STS_RECIPE = {"fds": True, "lds": True, "reweight": "inverse", "device": "
                     "batch_size": 128}
 GRAPH_STS_ROWS, GRAPH_STS_VOCAB = 5249, 12004
 GRAPH_TIMED = 41
+# the LSTM cell at the STS-B cell's shape: 512 rows (2 columns x 2 directions x
+# 128 pairs), 40 steps, H = 1500
+LSTM_CELL = (512, 40, 1500)
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
-           "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu"}
+           "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu",
+           "lstm_cell_forward": "lstm_cell.cu", "lstm_cell_backward": "lstm_cell.cu"}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
+# the TPU kernel each replaces; the LSTM cell none (the JAX package's cell
+# is XLA's, inside ``lax.scan``)
 REPLACES = {"calibrate_forward": f"{PALLAS}:208", "calibrate_backward": f"{PALLAS}:236",
-            "segment_moments": f"{PALLAS}:50", "segment_moments_v2": f"{PALLAS}:128"}
+            "segment_moments": f"{PALLAS}:50", "segment_moments_v2": f"{PALLAS}:128",
+            "lstm_cell_forward": None, "lstm_cell_backward": None}
 
 
 def log(msg: str) -> None:
@@ -690,6 +709,118 @@ def graph_floor_ms(dev) -> float:
     return floor
 
 
+def lstm_cell_bytes(rows: int, hid: int, kind: str) -> int:
+    """Bytes one step of the cell must move at T = bf16: the forward reads
+    xw_t and hw ([rows, 4H] bf16) and c_{t-1} and writes c_t, h_t (float32
+    [rows, H]), h_t in bf16 and, saving (``fwd``, not ``fwd_nosave``), the
+    bf16 gates; the backward reads the gates, c_{t-1}, c_t, dh_t, the bf16
+    recurrent dh and dc_{t+1} and writes d_gates (bf16) and dc_t."""
+    gates, state = rows * 4 * hid * 2, rows * hid * 4
+    if kind == "bwd":
+        return gates + 3 * state + rows * hid * 2 + state + gates + state
+    return 2 * gates + 3 * state + rows * hid * 2 + (gates if kind == "fwd" else 0)
+
+
+def lstm_cell_phase(ck, dev) -> dict:
+    """The LSTM cell kernels at the STS-B cell's shape (``LSTM_CELL``: 2
+    columns x 2 directions x 128 pairs = 512 rows, H = 1500, 40 steps,
+    bf16): forward with and without the saved gates, and backward, held
+    against the plain cell on the card (gates bit-equal, states within
+    2e-6 of the largest, gradients within 2^-6), then timed over steps 1..39
+    (so each call finds its xw slice out of L2, as the layer's loop does):
+    ms by CUDA events, device ms in a replayed graph, the plain cell's ms,
+    and ATen's fused cell on bf16 gates of the same shape (the library
+    yardstick, never called by the port): ``_thnn_fused_lstm_cell`` beside
+    both forwards (it keeps its workspace either way),
+    ``_thnn_fused_lstm_cell_backward_impl`` on that call's workspace beside
+    the backward. Then one train forward and backward of a 2-layer
+    ``FusedBiLSTM`` at full width, and a no-grad forward, counting the cell
+    launches. Returns the records by kernel."""
+    from imbalanced_regression_tpu_torch.models.bilstm_pair import FusedBiLSTM
+    from imbalanced_regression_tpu_torch.ops import lstm_cell
+
+    rows, steps, hid = LSTM_CELL
+    gen = torch.Generator(device=dev).manual_seed(22)
+    bf = torch.bfloat16
+    xw = torch.randn(rows, steps, 4 * hid, generator=gen, device=dev).to(bf)
+    hw = torch.randn(rows, 4 * hid, generator=gen, device=dev).to(bf)
+    dhs = torch.randn(rows, steps, hid, generator=gen, device=dev)
+    dh_rec = torch.randn(rows, hid, generator=gen, device=dev).to(bf)
+
+    # c_all, hs, hprev, gates; c_all drawn, so every step has a c_{t-1}
+    kern = (torch.randn(rows, steps, hid, generator=gen, device=dev),
+            torch.zeros(rows, steps, hid, device=dev),
+            torch.zeros(rows, steps, hid, device=dev, dtype=bf), torch.zeros_like(xw))
+    plain = tuple(b.clone() for b in kern)
+    for t in (0, 1, steps - 1):
+        ck.lstm_cell_forward(xw, hw, *kern, t)
+        lstm_cell.lstm_cell_forward_plain(xw, hw, *plain, t)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[3], plain[3])
+    fwd_err = max(max_err(kern[i], plain[i]) / float(plain[i].abs().max()) for i in (0, 1))
+    assert fwd_err <= 2e-6, fwd_err
+    c_all, hs, hprev, gates = kern
+    dk = (torch.randn(rows, hid, generator=gen, device=dev), torch.empty_like(xw))
+    dp = (dk[0].clone(), torch.empty_like(xw))
+    for t in (steps - 1, steps - 2, 0):
+        ck.lstm_cell_backward(gates, c_all, dhs, dh_rec, *dk, t)
+        lstm_cell.lstm_cell_backward_plain(gates, c_all, dhs, dh_rec, *dp, t)
+    torch.cuda.synchronize()
+    bwd_err = max(max_err(dk[0], dp[0]) / float(dp[0].abs().max()),
+                  max_err(dk[1], dp[1]) / float(dp[1].abs().max()))
+    log(f"lstm cell: forward largest relative diff {fwd_err!r}, backward {bwd_err!r}")
+    assert bwd_err <= 2.0**-6, bwd_err
+
+    turn = itertools.cycle(range(1, steps - 1))
+    ig = torch.randn(steps, rows, 4 * hid, generator=gen, device=dev).to(bf)
+    cx = torch.randn(rows, hid, generator=gen, device=dev).to(bf)
+    aten = torch.ops.aten
+    library_fwd = lambda: aten._thnn_fused_lstm_cell(ig[next(turn)], hw, cx)  # noqa: E731
+    # (cy, workspace) of each step's library forward, for its backward
+    saved = [aten._thnn_fused_lstm_cell(ig[t], hw, cx)[1:] for t in range(steps)]
+    d_hy, d_cy = dh_rec, torch.randn(rows, hid, generator=gen, device=dev).to(bf)
+    cases = {
+        "lstm_cell_forward": (lambda: ck.lstm_cell_forward(xw, hw, *kern, next(turn)),
+                              lambda: lstm_cell.lstm_cell_forward_plain(xw, hw, *plain, next(turn)),
+                              library_fwd, "fwd", fwd_err),
+        "lstm_cell_forward nosave": (
+            lambda: ck.lstm_cell_forward(xw, hw, *kern[:3], None, next(turn)),
+            lambda: lstm_cell.lstm_cell_forward_plain(xw, hw, *plain[:3], None, next(turn)),
+            library_fwd, "fwd_nosave", fwd_err),
+        "lstm_cell_backward": (
+            lambda: ck.lstm_cell_backward(gates, c_all, dhs, dh_rec, *dk, next(turn)),
+            lambda: lstm_cell.lstm_cell_backward_plain(gates, c_all, dhs, dh_rec, *dp, next(turn)),
+            lambda: aten._thnn_fused_lstm_cell_backward_impl(d_hy, d_cy, cx, *saved[next(turn)],
+                                                             False),
+            "bwd", bwd_err)}
+    records = {}
+    for name, (kernel, plain_fn, library, kind, err) in cases.items():
+        nbytes = lstm_cell_bytes(rows, hid, kind)
+        records[name] = r = timed(kernel, plain_fn, library, nbytes, 0.0, err,
+                                  f"rows={rows},H={hid},steps={steps},bf16", iters=steps - 2,
+                                  graph_iters=steps - 2)
+        log(f"{name}: {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms, bound {r['bound'][0]:.5f} "
+            f"ms ({nbytes / 1e6:.3f} MB), {100 * r['bound'][0] / r['device_ms']:.1f}% of it; "
+            f"plain {r['plain_ms']:.5f} ms, library {r['library_ms']}")
+
+    mod = FusedBiLSTM(300, hid, 2, bf).to(dev)
+    x = torch.randn(rows // 2, steps, 300, generator=gen, device=dev).to(bf)
+    lengths = torch.randint(5, steps + 1, (rows // 2,), generator=gen, device=dev)
+    ck.reset_launch_counts()
+    mod(x, lengths).float().square().sum().backward()
+    torch.cuda.synchronize()
+    train = (ck.lstm_cell_forward.launches, ck.lstm_cell_backward.launches)
+    ck.reset_launch_counts()
+    with torch.no_grad():
+        mod(x, lengths)
+    torch.cuda.synchronize()
+    stats = (ck.lstm_cell_forward.launches, ck.lstm_cell_backward.launches)
+    ck.reset_launch_counts()
+    log(f"lstm cell launches: a train forward and backward {train}, a no-grad forward {stats}")
+    assert train == (2 * steps, 2 * steps) and stats == (2 * steps, 0), (train, stats)
+    return records
+
+
 def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict, dict]:
     """Every kernel against its plain version at the age path's batch
     (N_MAIN rows, where the age records are taken), K1/K2 at the bench's
@@ -899,6 +1030,38 @@ class Killed(Exception):
 
 def launch_counts(ck) -> dict:
     return {fn.__name__: fn.launches for fn in ck.KERNEL_WRAPPERS}
+
+
+def launches_of(**counts) -> dict:
+    """A launch count for each wrapper of ``ck.KERNEL_WRAPPERS``: those of
+    ``counts``, 0 for the others (the LSTM cell's, on every path but the
+    fused STS-B BiLSTM)."""
+    from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
+
+    names = [fn.__name__ for fn in ck.KERNEL_WRAPPERS]
+    assert set(counts) <= set(names), counts
+    return {name: counts.get(name, 0) for name in names}
+
+
+def sts_cell_launches(argv: list, run: dict) -> dict:
+    """The LSTM cell kernels' launches of the STS-B run ``run`` (a result of
+    ``stsb.main(argv)``, in the fused layout): a BiLSTM forward launches
+    ``n_layers_enc x max_seq_len`` forward cells (both directions are rows
+    of one batch, padded to ``max_seq_len``), a train step as many backward
+    ones besides; a forward runs in each train step, each stats-pass batch
+    (the train split's drop-last batches) and each evaluation batch (the
+    validation split at each check, the test split once)."""
+    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    cfg = stsb.parse_sts_config(argv)
+    train, val, test, _, _ = load_stsb_datasets(cfg.data_dir, cfg)
+    per = cfg.n_layers_enc * cfg.max_seq_len
+    batches = lambda split: -(-len(split["target"]) // cfg.batch_size)  # noqa: E731
+    forwards = (run["iterations"]
+                + len(run["stats_pass_seconds"]) * (len(train["target"]) // cfg.batch_size)
+                + len(run["val_history"]) * batches(val) + batches(test))
+    return {"lstm_cell_forward": per * forwards, "lstm_cell_backward": per * run["iterations"]}
 
 
 def add_counts(total: dict, more: dict) -> dict:
@@ -1214,6 +1377,8 @@ def sts_path_phase(ck, argv: list) -> tuple[dict, dict]:
     assert launches["segment_moments_v2"] == 0, launches
     assert ck.segment_moments.kernels == {"short": launches["segment_moments"]}, \
         ck.segment_moments.kernels
+    cells = sts_cell_launches(argv, result)
+    assert {k: launches[k] for k in cells} == cells, (launches, cells)
     fds = result["final_fds"]
     assert (fds.running_var_last_epoch != 1).any() and (fds.smoothed_mean_last_epoch != 0).any(), \
         "the last epoch calibrated with fds_init stats"
@@ -1246,6 +1411,14 @@ def sts_resume_phase(ck, full: dict, full_store: str) -> dict:
     assert not diffs, f"the resumed STS-B run differs from the uninterrupted one: {diffs[:8]}"
     for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
         assert resumed_launches[name] > 0, f"{name} was not launched on the resumed STS-B run"
+    # the killed and the resumed run together train, pass and evaluate as
+    # phase 11's run; --evaluate runs the test batches' forwards
+    cells = sts_cell_launches(argv, full)
+    both = add_counts(killed, resumed_launches)
+    assert {k: both[k] for k in cells} == cells, (both, cells)
+    test_only = sts_cell_launches(argv, {"iterations": 0, "stats_pass_seconds": [],
+                                         "val_history": []})
+    assert {k: eval_launches[k] for k in cells} == test_only, (eval_launches, test_only)
     diffs = payload_diffs(resumed["test"], evaluated["test"])
     log(f"--evaluate of the resumed store: equal to its final test: {not diffs}")
     assert not diffs, diffs
@@ -1420,8 +1593,8 @@ def agedb_phase(ck) -> tuple[dict, dict]:
     steps = dict(AGEDB_SPLITS)["train"] // AGEDB_BATCH
     assert all(math.isfinite(h["train_loss"]) for h in result["history"]), result["history"]
     assert all(math.isfinite(v) for v in result["test"].values()), result["test"]
-    want = {"calibrate_forward": steps, "calibrate_backward": steps, "segment_moments": 2 * steps,
-            "segment_moments_v2": 0}
+    want = launches_of(calibrate_forward=steps, calibrate_backward=steps,
+                       segment_moments=2 * steps)
     assert launches == want, f"launches {launches}, expected {want}"
     assert ck.segment_moments.kernels == {"short": 2 * steps}, ck.segment_moments.kernels
     # two epochs: epoch 1 calibrates with the snapshot its own pass has not
@@ -1591,8 +1764,10 @@ def serving_phase(ck, age_store: str, depth_store: str, sts_argv: list) -> dict:
     records["serve_bench_age"] = rows
     torch.cuda.synchronize()
     launches = launch_counts(ck)
-    log(f"serving phase: {time.time() - t_phase:.1f}s, FDS kernel launches {launches}")
-    assert not any(launches.values()), f"an FDS kernel launched while serving: {launches}"
+    log(f"serving phase: {time.time() - t_phase:.1f}s, kernel launches {launches}")
+    # the STS-B predictor's forward may run the cell; nothing else may launch
+    assert not any(n for k, n in launches.items() if k != "lstm_cell_forward"), \
+        f"an FDS kernel or a cell backward launched while serving: {launches}"
     shutil.rmtree(SERVE_DIR)
     return records
 
@@ -1606,10 +1781,10 @@ def age_predicted_launches(cfg, rrt_stage2: bool = False) -> dict:
     steps), K4 never."""
     steps = int(cfg.synthetic_size * 0.7) // cfg.batch_size  # tasks/age.py's 70% train split
     calibrating = steps * max(cfg.epoch - cfg.start_smooth, 0) if cfg.fds else 0
-    return {"calibrate_forward": calibrating,
-            "calibrate_backward": 0 if rrt_stage2 else calibrating,
-            "segment_moments": steps * max(cfg.epoch - cfg.start_update, 0) if cfg.fds else 0,
-            "segment_moments_v2": 0}
+    return launches_of(calibrate_forward=calibrating,
+                       calibrate_backward=0 if rrt_stage2 else calibrating,
+                       segment_moments=steps * max(cfg.epoch - cfg.start_update, 0) if cfg.fds
+                       else 0)
 
 
 def dp_age_phase(ck) -> dict:
@@ -1843,8 +2018,7 @@ def bench_phase(ck) -> dict:
     log(f"bench ({time.time() - t0:.1f}s): {json.dumps(line)}")
     steps = bench.WARMUP + bench.STEPS
     assert line["batch"] == BENCH_BATCH and line["launches"] == launches, line
-    assert launches == {"calibrate_forward": steps, "calibrate_backward": steps,
-                        "segment_moments": 0, "segment_moments_v2": 0}, launches
+    assert launches == launches_of(calibrate_forward=steps, calibrate_backward=steps), launches
     assert math.isfinite(line["final_loss"]) and line["value"] > 0, line
     return launches
 
@@ -1963,8 +2137,9 @@ def sts_flax_phase(ck) -> dict:
     # calibrating steps of epoch 1
     n_batches = n // STS_BATCH
     calibrating = cfg.val_interval * cfg.max_vals - n_batches
-    predicted = {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
-                 "segment_moments": n_batches, "segment_moments_v2": 0}
+    # the per-direction layout runs no LSTM cell kernel
+    predicted = launches_of(calibrate_forward=calibrating, calibrate_backward=calibrating,
+                            segment_moments=n_batches)
     ck.reset_launch_counts()
     t0 = time.time()
     result = stsb.main(argv)
@@ -2140,8 +2315,9 @@ def tutorial_phase(ck, device: str = "cuda") -> dict:
     steps = TUTORIAL_ROWS // TUTORIAL_BATCH
     calibrating = (TUTORIAL_EPOCHS - ns["fds_cfg"].start_smooth) * steps
     if device == "cuda":
-        assert launches == {"calibrate_forward": calibrating, "calibrate_backward": calibrating,
-                            "segment_moments": TUTORIAL_EPOCHS, "segment_moments_v2": 0}, launches
+        assert launches == launches_of(calibrate_forward=calibrating,
+                                       calibrate_backward=calibrating,
+                                       segment_moments=TUTORIAL_EPOCHS), launches
         assert ck.segment_moments.kernels == {"short": TUTORIAL_EPOCHS}
     (card_losses, card, card_shots), (cpu_losses, cpu, cpu_shots) = (
         tutorial_run(ns, device), tutorial_run(ns, "cpu"))
@@ -2546,6 +2722,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda:0")
     floor = graph_floor_ms(dev)
+    lstm_records = lstm_cell_phase(ck, dev)
     age_records, bench_records, depth_records, sts_records, agedb_records = kernel_phase(
         ck, cal, dev)
     age_launches = main_path_phase(ck)
@@ -2583,7 +2760,7 @@ def main(argv=None) -> int:
     # 13's legs (batch 64), 15's ranks (64 rows each) and 16's sweep, the
     # bench batch's 16's bench, the depth shape's phases 5, 6 (K4) and 10,
     # the STS-B shape's 11, 12 and 16's per-direction run, the AgeDB
-    # batch's 13, the tutorial's shapes 17
+    # batch's 13, the tutorial's shapes 17, the LSTM cell's 11 and 12
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
                   "13": legs_launches, "15": dp_launches, "16": sweep_launches}
     bench_phases = {"16": bench_launches}
@@ -2594,7 +2771,8 @@ def main(argv=None) -> int:
     for records, phases in ((age_records, age_phases), (bench_records, bench_phases),
                             (depth_records, depth_phases), (sts_records, sts_phases),
                             (agedb_records, agedb_phases),
-                            (tutorial_records, {"17": tutorial_launches})):
+                            (tutorial_records, {"17": tutorial_launches}),
+                            (lstm_records, {"11": sts_launches, "12": sts_resume_launches})):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
             by_phase = {p: n.get(name, 0) for p, n in phases.items()}

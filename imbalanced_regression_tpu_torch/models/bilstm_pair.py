@@ -23,7 +23,11 @@ round 4). The fused recurrence is the JAX ``FusedBiLSTM``'s, not
   departure, so the two hold the same parameters;
 - gates ``xw_t + bf16(h) @ bf16(W_h)`` are summed in the module dtype (bf16
   at full width) and cast to float32, gate order i, f, g, o; the cell and
-  hidden states stay float32.
+  hidden states stay float32;
+- a layer's recurrence is one autograd Function (:class:`FusedLSTMLayer`):
+  a step is the product ``h @ W_h`` and one cell kernel forward
+  (``csrc/lstm_cell.cu``; its plain version on the CPU), one kernel and
+  the product ``dgates @ W_hᵀ`` backward.
 
 :class:`BiLSTM` keeps a weight set per direction and Flax's
 ``OptimizedLSTMCell`` numerics (below). Neither layout runs ``nn.LSTM``:
@@ -45,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from imbalanced_regression_tpu_torch.models.resnet import dense_reset_, lecun_normal_
+from imbalanced_regression_tpu_torch.ops import cuda_kernels as ck
 from imbalanced_regression_tpu_torch.parallel import mesh as dp
 
 
@@ -138,23 +143,99 @@ class FusedBiLSTM(nn.Module):
         for layer in range(self.n_layers):
             xx = torch.cat([x, flip_padded(x, lengths)], dim=0)  # [2B, L, D]
             xw = _dense(xx, getattr(self, f"input_proj_{layer}"), self.dtype)  # [2B, L, 4H]
-            wh = getattr(self, f"recurrent_kernel_{layer}").to(self.dtype)
-            c = torch.zeros(xx.shape[0], self.hidden_size, device=x.device)
-            h = torch.zeros_like(c)
-            hs = []
-            # unbind, not xw[:, t]: the backward of 40 slices would add 40
-            # zero-filled copies of the whole [2B, L, 4H] gradient; unbind's
-            # stacks the steps' gradients once
-            for xt in xw.unbind(1):
-                gates = (xt + h.to(self.dtype) @ wh).float()
-                i, f, g, o = gates.chunk(4, dim=-1)
-                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-                h = torch.sigmoid(o) * torch.tanh(c)
-                hs.append(h)
-            hs = torch.stack(hs, dim=1)  # [2B, L, H] float32
+            w_h = getattr(self, f"recurrent_kernel_{layer}")
+            if torch.compiler.is_exporting():
+                hs = exported_recurrence(xw, w_h.to(self.dtype))
+            else:
+                save = torch.is_grad_enabled() and (xw.requires_grad or w_h.requires_grad)
+                hs = FusedLSTMLayer.apply(xw, w_h, save)  # [2B, L, H] float32
             out_b = flip_padded(hs[n_rows:], lengths)
             x = torch.cat([hs[:n_rows], out_b], dim=-1).to(self.dtype)
         return x
+
+
+def _outer_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``aᵀ b`` over the rows of ``a`` [N, H] and ``b`` [N, 4H] (both in the
+    module type), accumulated and returned in float32 (float64 for float64
+    operands): for bf16, the card's bf16 product with a float32 output, and
+    on the CPU the float32 product of the exactly widened operands."""
+    if a.dtype != torch.bfloat16:
+        return a.T @ b
+    if a.is_cuda:
+        return torch.mm(a.T, b, out_dtype=torch.float32)
+    return a.T.float() @ b.float()
+
+
+class FusedLSTMLayer(torch.autograd.Function):
+    """One layer's recurrence, ``xw`` [2B, L, 4H] (the input projections,
+    in the module type T) and the float32 recurrent kernel ``w_h`` [H, 4H]
+    to the hidden states [2B, L, H] in float32, forward and backward. A
+    step is one product ``hprev[:, t] @ W_h`` (``torch.mm``, W_h cast to T
+    once) and one cell kernel (:func:`ops.cuda_kernels.lstm_cell_forward`,
+    its plain version on the CPU), which writes ``c_t`` and ``h_t``
+    straight into the layer's buffers and ``h_t`` in T for the next
+    product; with ``save`` it also keeps the gate pre-activations (exact in
+    T) for the backward. A backward step is one cell kernel
+    (:func:`ops.cuda_kernels.lstm_cell_backward`), whose gradient rows are
+    the returned ``d xw``, and one product ``dg[:, t] @ W_hᵀ``. After the
+    loop ``dW_h`` is one product over every step's rows, ``hprevᵀ @ dg``,
+    accumulated in float32 (:func:`_outer_sum`): as autograd ran the
+    eager loop it was a product a step, each rounded to T and summed in T,
+    so this sum is now taken in another order and nearer the float32
+    one."""
+
+    @staticmethod
+    def forward(ctx, xw, w_h, save: bool):
+        xw = xw.contiguous()
+        rows, steps, h4 = xw.shape
+        hid = h4 // 4
+        wh = w_h.to(xw.dtype)
+        hs = xw.new_empty((rows, steps, hid), dtype=torch.promote_types(xw.dtype, torch.float32))
+        c_all = torch.empty_like(hs)
+        hprev = xw.new_empty((rows, steps, hid))
+        gates = torch.empty_like(xw) if save else None
+        hw = xw.new_empty((rows, h4))
+        for t in range(steps):
+            if t:
+                torch.mm(hprev[:, t], wh, out=hw)
+            ck.lstm_cell_forward(xw, hw, c_all, hs, hprev, gates, t)
+        if save:
+            ctx.save_for_backward(gates, c_all, hprev, wh)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        gates, c_all, hprev, wh = ctx.saved_tensors
+        rows, steps, h4 = gates.shape
+        hid = h4 // 4
+        dhs = dhs.contiguous()
+        dg = torch.empty_like(gates)
+        dc = c_all.new_empty((rows, hid))
+        dh_rec = hprev.new_empty((rows, hid))
+        for t in reversed(range(steps)):
+            ck.lstm_cell_backward(gates, c_all, dhs, dh_rec, dc, dg, t)
+            if t:
+                torch.mm(dg[:, t], wh.T, out=dh_rec)
+        dw = _outer_sum(hprev.view(rows * steps, hid), dg.view(rows * steps, h4))
+        return dg, dw, None
+
+
+def exported_recurrence(xw: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """The recurrence as ATen operations, for ``torch.export`` only: an
+    exported program holds no call into the kernel library (its loader
+    imports none of this package), and in-place writes into the layer's
+    buffers would export as a copy of the whole buffer a step. The
+    arithmetic of :class:`FusedLSTMLayer`'s forward."""
+    c = torch.zeros(xw.shape[0], wh.shape[0], dtype=torch.float32, device=xw.device)
+    h = torch.zeros_like(c)
+    hs = []
+    for xt in xw.unbind(1):
+        gates = (xt + h.to(xw.dtype) @ wh).float()
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 class BiLSTM(nn.Module):

@@ -14,6 +14,12 @@ Four kernels in ``csrc/`` replace the Pallas TPU kernels of the JAX package
   split on the tensor cores (``pallas_moments_v2`` / ``_moments_v2_kernel``
   and ``_split3``; ``moments_v2.cu``).
 
+Two more replace no Pallas kernel: :func:`lstm_cell_forward` and
+:func:`lstm_cell_backward`, one time step of the STS-B BiLSTM's cell
+(``lstm_cell.cu``), which XLA fuses into the JAX package's scan and eager
+PyTorch ran as some 13 kernels forward and 20 backward
+(``models/bilstm_pair.py`` ``FusedLSTMLayer`` drives them).
+
 K1 runs in one of two forms, chosen by :func:`calibrate_plan` from the
 shapes: direct (each row gathers its bucket's statistics and computes the
 factor per element) for small batches, and factored (a first kernel writes
@@ -50,6 +56,10 @@ import torch
 import torch.nn.functional as F
 
 from imbalanced_regression_tpu_torch.ops.calibrate import calibrate_indexed, calibrate_indexed_grad
+from imbalanced_regression_tpu_torch.ops.lstm_cell import (
+    lstm_cell_backward_plain,
+    lstm_cell_forward_plain,
+)
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -75,6 +85,10 @@ _SIGNATURES = {
     # f, idx, counts, sums, sumsq, ws_counts, ws_sums, ws_sumsq, n, d, nb, chunks, stream
     "fds_segment_moments_v2": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "fds_moments_v2_blocks_per_sm": (),
+    # xw, hw, c_all, hs, hprev, gates, bf16, vec, rows, steps, hid, t, stream
+    "lstm_cell_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # gates, c_all, dhs, dh_rec, dc, dg, bf16, vec, rows, steps, hid, t, stream
+    "lstm_cell_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -512,7 +526,88 @@ def segment_moments_v2(features, idx, num_buckets: int):
     return out
 
 
-KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments, segment_moments_v2)
+# ---------------------------------------------------------------------------
+# the LSTM cell
+# ---------------------------------------------------------------------------
+
+_CELL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _cell_shape(name: str, seq) -> tuple[int, int, int]:
+    """(rows, steps, H) of a cell step's ``seq`` [rows, steps, 4H] in the
+    module type T (float32 or bf16), checked."""
+    if seq.dim() != 3 or seq.shape[-1] % 4 or seq.dtype not in _CELL_DTYPES:
+        raise TypeError(f"{name} must be float32 or bf16 [rows, steps, 4H], got "
+                        f"{seq.dtype}{list(seq.shape)}")
+    _check(name, seq, (seq.dtype,), seq.shape, seq.device)
+    rows, steps, h4 = seq.shape
+    if not seq.numel():
+        raise ValueError(f"{name} is empty")
+    return rows, steps, h4 // 4
+
+
+def _cell_launch(name: str, t: int, seq, ops, rows: int, steps: int, hid: int) -> None:
+    """Launch entry point ``name`` at step ``t`` on the pointers of ``ops``
+    (None: a null pointer), four hidden units a thread (16-byte accesses)
+    where H and every pointer allow it."""
+    if not 0 <= t < steps:
+        raise ValueError(f"step {t} outside [0, {steps})")
+    ptrs = [p.data_ptr() if p is not None else None for p in ops]
+    vec = int(hid % 4 == 0 and all(p % 16 == 0 for p in ptrs if p is not None))
+    _launch(name, seq.get_device(), *ptrs, int(seq.dtype == torch.bfloat16), vec, rows, steps,
+            hid, t)
+
+
+def lstm_cell_forward(xw, hw, c_all, hs, hprev, gates, t: int) -> None:
+    """Step ``t`` of the LSTM forward, in place (``csrc/lstm_cell.cu``):
+    from ``xw`` [rows, steps, 4H] (the module type T: float32 or bf16), the
+    recurrent product ``hw`` = ``hprev[:, t] @ W_h`` [rows, 4H] (T; read
+    for ``t > 0`` only) and ``c_all[:, t - 1]``, write ``c_all[:, t]`` and
+    ``hs[:, t]`` (float32 [rows, steps, H]), ``h_t`` in T into
+    ``hprev[:, t + 1]`` (``hprev[:, 0] = 0`` at ``t = 0``), and the gate
+    pre-activations into ``gates[:, t]`` (T, like ``xw``) unless ``gates``
+    is None. Plain version: :func:`ops.lstm_cell.lstm_cell_forward_plain`."""
+    if _on_cpu(xw):
+        return lstm_cell_forward_plain(xw, hw, c_all, hs, hprev, gates, t)
+    rows, steps, hid = _cell_shape("xw", xw)
+    dt, dev, state = (xw.dtype,), xw.device, (rows, steps, hid)
+    if t > 0:
+        _check("hw", hw, dt, (rows, 4 * hid), dev)
+    _check("c_all", c_all, _F32, state, dev)
+    _check("hs", hs, _F32, state, dev)
+    _check("hprev", hprev, dt, state, dev)
+    if gates is not None:
+        _check("gates", gates, dt, xw.shape, dev)
+    _cell_launch("lstm_cell_fwd", t, xw, (xw, hw if t > 0 else None, c_all, hs, hprev, gates),
+                 rows, steps, hid)
+    lstm_cell_forward.launches += 1
+
+
+def lstm_cell_backward(gates, c_all, dhs, dh_rec, dc, dg, t: int) -> None:
+    """Step ``t`` of the LSTM backward (``t`` from ``steps - 1`` down to
+    0), in place: from the saved ``gates`` [rows, steps, 4H] (T),
+    ``c_all`` [rows, steps, H] (float32), the output gradient ``dhs``
+    [rows, steps, H] (float32), the recurrent ``dh_rec`` = ``dg[:, t + 1]
+    @ W_hᵀ`` [rows, H] (T) and ``dc`` [rows, H] (float32, ``dc_{t+1}``;
+    both read for ``t < steps - 1`` only), write the pre-activation
+    gradient into ``dg[:, t]`` (T) and ``dc_t`` into ``dc``. Plain version:
+    :func:`ops.lstm_cell.lstm_cell_backward_plain`."""
+    if _on_cpu(gates):
+        return lstm_cell_backward_plain(gates, c_all, dhs, dh_rec, dc, dg, t)
+    rows, steps, hid = _cell_shape("gates", gates)
+    dt, dev, state = (gates.dtype,), gates.device, (rows, steps, hid)
+    _check("c_all", c_all, _F32, state, dev)
+    _check("dhs", dhs, _F32, state, dev)
+    _check("dh_rec", dh_rec, dt, (rows, hid), dev)
+    _check("dc", dc, _F32, (rows, hid), dev)
+    _check("dg", dg, dt, gates.shape, dev)
+    _cell_launch("lstm_cell_bwd", t, gates, (gates, c_all, dhs, dh_rec, dc, dg), rows, steps, hid)
+    lstm_cell_backward.launches += 1
+
+
+# every wrapper with a launch count (a captured graph's replay adds its launches to each)
+KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments, segment_moments_v2,
+                   lstm_cell_forward, lstm_cell_backward)
 
 
 def reset_launch_counts() -> None:

@@ -384,7 +384,7 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert c.sum().item() == (e >= 0).sum()
     c2, _, _ = ck.segment_moments_v2(T(x), T(e), 12)
     torch.testing.assert_close(c2, c, rtol=0, atol=0)
-    assert len(ck.KERNEL_WRAPPERS) == 4
+    assert len(ck.KERNEL_WRAPPERS) == 6
     assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
     assert not ck.segment_moments.kernels
 
@@ -409,9 +409,13 @@ def test_kernel_sources_and_build_key():
     v2 = (ck.SOURCE_DIR / "moments_v2.cu").read_text()
     for entry in ("fds_segment_moments_v2", "fds_moments_v2_blocks_per_sm"):
         assert f"int {entry}(" in v2
+    lstm = (ck.SOURCE_DIR / "lstm_cell.cu").read_text()
+    for entry in ("lstm_cell_fwd", "lstm_cell_bwd"):
+        assert f"int {entry}(" in lstm
     assert set(ck._SIGNATURES) == {"fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
                                    "fds_segment_moments_v2", "fds_moments_short_max_rows",
-                                   "fds_moments_v2_blocks_per_sm"}
+                                   "fds_moments_v2_blocks_per_sm", "lstm_cell_fwd",
+                                   "lstm_cell_bwd"}
     # the plan's threshold is the short-batch kernel's limit; K4's chunks
     # assume the occupancy its register cap gives
     assert f"kShortMaxRows = {ck.SHORT_BATCH_MAX_ROWS};" in src
