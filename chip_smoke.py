@@ -12,7 +12,9 @@ Phases:
    age path's batch (N = 64 rows, D = 2048, B = 100 buckets), where K1-K3
    are timed, and at N = 128 (the bench's batch, where K1 and K2 are timed
    too; K3/K4 also at N = 8192); K4 is timed at N = 64 too, for the record
-   only (the age path does not run it);
+   only (the age path does not run it); the LSTM cell at the STS-B shape;
+   the MoE dispatch and combine at the DeepSeek-V2 cell's layer (10,240
+   tokens, top-6 of 64 experts, 8 held, D = 2,048, bf16);
 3. the same at the NYUD2 stats-pass and train-step shape (N = 32 x 114 x
    152 = 554,496 pixels, D = 128, B = 93): K1/K2 against their plain
    versions in "positive" guard mode; K3/K4 against a float64 reference
@@ -153,6 +155,13 @@ Phases:
    the host's ms a step (the median ``step`` span) and the ms a step by
    CUDA events around them (the device's period where the host runs
    ahead).
+19. the STS-B driver with ``--encoder deepseek_v2`` at DeepSeek-V2-Lite's
+   widths and vocabulary, cut to the dense layer and one MoE layer
+   (``STS_MOE_ARGV``), 45 iterations over phase 11's corpus with a stats
+   pass and one validation check: steps and pass batches replayed as
+   graphs, the dispatch kernels launched exactly as many times as the
+   run's forwards and steps call them (``sts_moe_launches``), every held
+   expert routed rows; its launches go into the ``kernels`` line.
 
 Phase 2 also holds K1, K2 and K3 at the STS-B shape (N = 128, D = 12000,
 B = 50, ``positive`` mode with clip [0.5, 2.0], an empty bucket and rows of
@@ -294,6 +303,12 @@ SWEEP_ARGV = ["--synthetic_size", "320", "--img_size", "224", "--batch_size", "6
 # one validation check at the end, one stats pass at the rollover of 41
 STS_FLAX_BUDGET = ["--val_interval", "45", "--max_vals", "1"]
 STS_STEPS = (3, 10, 5)  # the layouts' step windows: warm-up, host-timed, profiled
+# phase 19: the STS-B driver with the DeepSeek-V2 encoder at DeepSeek-V2-Lite's
+# widths and vocabulary, cut to two layers (the dense one and one MoE layer
+# holding experts 0-7 of 64), on phase 11's corpus, with STS_FLAX_BUDGET
+STS_MOE_ARGV = ["--data_dir", STS_DIR, "--encoder", "deepseek_v2", "--glove", "0",
+                "--num_hidden_layers", "2", "--experts_held", "8", "--fds", "--lds",
+                "--reweight", "inverse", *STS_FLAX_BUDGET, "--cache_dir", f"{STS_DIR}/cache"]
 # phase 17: the DIR tutorial (a 13 -> 64 -> 64 MLP, FDS on its 64-wide
 # hook, 51 buckets; 1,749 rows after its tail subsampling, 13 steps of 128
 # an epoch, 15 epochs, calibrating from epoch 1), its notebook, the entry
@@ -324,15 +339,22 @@ GRAPH_TIMED = 41
 # the LSTM cell at the STS-B cell's shape: 512 rows (2 columns x 2 directions x
 # 128 pairs), 40 steps, H = 1500
 LSTM_CELL = (512, 40, 1500)
+# the MoE dispatch at the STS-B DeepSeek-V2 cell's layer: 10,240 token
+# positions (2 columns x 128 pairs x 40), top-6 of 64 experts, 8 held, D = 2,048
+MOE_LAYER = (10240, 6, 64, 8, 2048)
 SOURCES = {"calibrate_forward": "fds_kernels.cu", "calibrate_backward": "fds_kernels.cu",
            "segment_moments": "fds_kernels.cu", "segment_moments_v2": "moments_v2.cu",
-           "lstm_cell_forward": "lstm_cell.cu", "lstm_cell_backward": "lstm_cell.cu"}
+           "lstm_cell_forward": "lstm_cell.cu", "lstm_cell_backward": "lstm_cell.cu",
+           **dict.fromkeys(("moe_dispatch", "moe_dispatch_backward", "moe_combine",
+                            "moe_combine_backward"), "moe_dispatch.cu")}
 PALLAS = "imbalanced_regression_tpu/ops/pallas_kernels.py"
 # the TPU kernel each replaces; the LSTM cell none (the JAX package's cell
 # is XLA's, inside ``lax.scan``)
 REPLACES = {"calibrate_forward": f"{PALLAS}:208", "calibrate_backward": f"{PALLAS}:236",
             "segment_moments": f"{PALLAS}:50", "segment_moments_v2": f"{PALLAS}:128",
-            "lstm_cell_forward": None, "lstm_cell_backward": None}
+            "lstm_cell_forward": None, "lstm_cell_backward": None,
+            **dict.fromkeys(("moe_dispatch", "moe_dispatch_backward", "moe_combine",
+                             "moe_combine_backward"))}
 
 
 def log(msg: str) -> None:
@@ -821,6 +843,80 @@ def lstm_cell_phase(ck, dev) -> dict:
     return records
 
 
+def moe_dispatch_bytes(tokens: int, k: int, d: int, rows: int, touched: int, kind: str) -> int:
+    """Bytes one call must move in bf16: the dispatch reads the int64
+    choices and the touched tokens' rows and writes each slot's row, the
+    offsets and the routed rows; the combine reads the routed rows and the
+    slots' rows and weights and writes float32 [T, D]; its backward reads
+    the float32 gradient, the routed rows and the slots and writes the
+    rows' and the weights' gradients; the dispatch's backward reads the
+    rows' gradient and the slots and writes [T, D]."""
+    slots, e = tokens * k, 2
+    return {"dispatch": slots * 12 + (touched + rows) * d * e + slots * 4,
+            "combine": rows * d * e + slots * 8 + tokens * d * 4,
+            "combine_bwd": tokens * d * 4 + 2 * rows * d * e + slots * 12,
+            "dispatch_bwd": rows * d * e + slots * 4 + tokens * d * e}[kind]
+
+
+def moe_dispatch_phase(ck, dev) -> dict:
+    """The MoE dispatch and combine kernels at the DeepSeek-V2 cell's layer
+    (``MOE_LAYER``, bf16, the router's top-6 of random logits), held
+    against their plain versions run on the card: slots, offsets, counters
+    and the routed rows equal, the combine and both backwards bit for bit,
+    the weights' gradient within 1e-5 of the largest; then timed (ms by
+    CUDA events, device ms in a replayed graph, the plain version's ms)
+    beside the least time of their bytes. Returns the records by kernel."""
+    from imbalanced_regression_tpu_torch.ops import moe_dispatch as md
+
+    tokens, k, experts, held, d = MOE_LAYER
+    gen = torch.Generator(device=dev).manual_seed(23)
+    w, idx = torch.randn(tokens, experts, generator=gen, device=dev).softmax(-1).topk(k, dim=-1)
+    x = torch.randn(tokens, d, generator=gen, device=dev).to(torch.bfloat16)
+    counters = [torch.zeros(held, dtype=torch.int64, device=dev),
+                torch.zeros(1, dtype=torch.int64, device=dev)]
+    plain_counters = [c.clone() for c in counters]
+    xs, pos, offs = ck.moe_dispatch(x, idx, 0, held, *counters)
+    pxs, ppos, poffs = md.moe_dispatch_plain(x, idx, 0, held, *plain_counters)
+    rows, touched = int(poffs[-1]), int(plain_counters[1])
+    assert torch.equal(pos, ppos) and torch.equal(offs, poffs)
+    assert all(torch.equal(a, b) for a, b in zip(counters, plain_counters))
+    assert torch.equal(xs[:rows], pxs[:rows])
+    y = torch.randn(xs.shape, generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn(tokens, d, generator=gen, device=dev)
+    assert torch.equal(ck.moe_combine(y, w, pos), md.moe_combine_plain(y, w, pos))
+    assert torch.equal(ck.moe_dispatch_backward(y, pos), md.moe_dispatch_backward_plain(y, pos))
+    dy, dw = ck.moe_combine_backward(dout, y, w, pos)
+    pdy, pdw = md.moe_combine_backward_plain(dout, y, w, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(dy[:rows], pdy[:rows])
+    dw_err = max_err(dw, pdw) / float(pdw.abs().max())
+    assert dw_err <= 1e-5, dw_err
+    log(f"moe dispatch: {rows} routed rows of {tokens * k} slots ({touched} tokens touched), "
+        f"per expert {torch.diff(offs, prepend=offs.new_zeros(1)).tolist()}; combine's weight "
+        f"gradient largest relative diff {dw_err!r}")
+    cases = {
+        "moe_dispatch": (lambda: ck.moe_dispatch(x, idx, 0, held, *counters),
+                         lambda: md.moe_dispatch_plain(x, idx, 0, held, *plain_counters),
+                         "dispatch", 0.0),
+        "moe_combine": (lambda: ck.moe_combine(y, w, pos), lambda: md.moe_combine_plain(y, w, pos),
+                        "combine", 0.0),
+        "moe_combine_backward": (lambda: ck.moe_combine_backward(dout, y, w, pos),
+                                 lambda: md.moe_combine_backward_plain(dout, y, w, pos),
+                                 "combine_bwd", dw_err),
+        "moe_dispatch_backward": (lambda: ck.moe_dispatch_backward(y, pos),
+                                  lambda: md.moe_dispatch_backward_plain(y, pos), "dispatch_bwd",
+                                  0.0)}
+    records = {}
+    for name, (kernel, plain_fn, kind, err) in cases.items():
+        nbytes = moe_dispatch_bytes(tokens, k, d, rows, touched, kind)
+        records[name] = r = timed(kernel, plain_fn, None, nbytes, 0.0, err,
+                                  f"T={tokens},K={k},E={held}/{experts},D={d},bf16", iters=20)
+        log(f"{name}: {r['ms']:.5f} ms, device {r['device_ms']:.5f} ms, bound {r['bound'][0]:.5f} "
+            f"ms ({nbytes / 1e6:.3f} MB), {100 * r['bound'][0] / r['device_ms']:.1f}% of it; "
+            f"plain {r['plain_ms']:.5f} ms")
+    return records
+
+
 def kernel_phase(ck, cal, dev) -> tuple[dict, dict, dict, dict, dict]:
     """Every kernel against its plain version at the age path's batch
     (N_MAIN rows, where the age records are taken), K1/K2 at the bench's
@@ -1043,25 +1139,48 @@ def launches_of(**counts) -> dict:
     return {name: counts.get(name, 0) for name in names}
 
 
+def sts_forwards(cfg, run: dict) -> int:
+    """The encoder forwards of the STS-B run ``run`` (a result of
+    ``stsb.main``) under ``cfg``: one in each train step, each stats-pass
+    batch (the train split's drop-last batches) and each evaluation batch
+    (the validation split at each check, the test split once)."""
+    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+
+    train, val, test, _, _ = load_stsb_datasets(cfg.data_dir, cfg)
+    batches = lambda split: -(-len(split["target"]) // cfg.batch_size)  # noqa: E731
+    return (run["iterations"]
+            + len(run["stats_pass_seconds"]) * (len(train["target"]) // cfg.batch_size)
+            + len(run["val_history"]) * batches(val) + batches(test))
+
+
 def sts_cell_launches(argv: list, run: dict) -> dict:
     """The LSTM cell kernels' launches of the STS-B run ``run`` (a result of
     ``stsb.main(argv)``, in the fused layout): a BiLSTM forward launches
     ``n_layers_enc x max_seq_len`` forward cells (both directions are rows
     of one batch, padded to ``max_seq_len``), a train step as many backward
-    ones besides; a forward runs in each train step, each stats-pass batch
-    (the train split's drop-last batches) and each evaluation batch (the
-    validation split at each check, the test split once)."""
-    from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
+    ones besides (:func:`sts_forwards`)."""
     from imbalanced_regression_tpu_torch.tasks import stsb
 
     cfg = stsb.parse_sts_config(argv)
-    train, val, test, _, _ = load_stsb_datasets(cfg.data_dir, cfg)
     per = cfg.n_layers_enc * cfg.max_seq_len
-    batches = lambda split: -(-len(split["target"]) // cfg.batch_size)  # noqa: E731
-    forwards = (run["iterations"]
-                + len(run["stats_pass_seconds"]) * (len(train["target"]) // cfg.batch_size)
-                + len(run["val_history"]) * batches(val) + batches(test))
-    return {"lstm_cell_forward": per * forwards, "lstm_cell_backward": per * run["iterations"]}
+    return {"lstm_cell_forward": per * sts_forwards(cfg, run),
+            "lstm_cell_backward": per * run["iterations"]}
+
+
+def sts_moe_launches(argv: list, run: dict) -> dict:
+    """The dispatch kernels' launches of the STS-B run ``run`` with the
+    ``deepseek_v2`` encoder: each MoE layer's forward launches the route
+    and the gather (``moe_dispatch``, two kernels) and ``moe_combine``, a
+    train step's backward ``moe_combine_backward`` and
+    ``moe_dispatch_backward`` once a layer besides (:func:`sts_forwards`)."""
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    cfg = stsb.parse_sts_config(argv)
+    layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    forwards = sts_forwards(cfg, run)
+    return {"moe_dispatch": 2 * layers * forwards, "moe_combine": layers * forwards,
+            "moe_combine_backward": layers * run["iterations"],
+            "moe_dispatch_backward": layers * run["iterations"]}
 
 
 def add_counts(total: dict, more: dict) -> dict:
@@ -1424,6 +1543,39 @@ def sts_resume_phase(ck, full: dict, full_store: str) -> dict:
     assert not diffs, diffs
     shutil.rmtree(f"{RESUME_ROOT}/sts_resumed")
     return add_counts(add_counts(killed, resumed_launches), eval_launches)
+
+
+def sts_moe_phase(ck) -> dict:
+    """Phase 19: the STS-B driver with ``--encoder deepseek_v2`` at
+    DeepSeek-V2-Lite's widths (``STS_MOE_ARGV``): its steps and stats-pass
+    batches replayed as graphs, the dispatch kernels launched exactly
+    :func:`sts_moe_launches` times (a replay adds its graph's launches), no
+    LSTM cell, every held expert routed rows. Returns its launches."""
+    from imbalanced_regression_tpu_torch.tasks import stsb
+
+    argv = with_root(STS_MOE_ARGV, f"{RESUME_ROOT}/sts_moe")
+    t0 = time.time()
+    ck.reset_launch_counts()
+    result = stsb.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts(ck)
+    graphs = {kind: dict(n) for kind, n in result["trainer"].graph_stats.items()}
+    routed = result["state"].backbone.routed_rows.tolist()
+    want = sts_moe_launches(argv, result)
+    log(f"STS-B DeepSeek-V2 path: {time.time() - t0:.1f}s, {result['iterations']} iterations, "
+        f"{len(result['stats_pass_seconds'])} stats passes, graphs {graphs}, kernel launches "
+        f"{launches} (dispatch kernels predicted {want}), routed rows by held expert {routed}, "
+        f"test overall {result['test']['overall']}")
+    assert all(math.isfinite(c["train_loss"]) and math.isfinite(c["val_mse"])
+               for c in result["checks"]), result["checks"]
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert launches["lstm_cell_forward"] == launches["lstm_cell_backward"] == 0, launches
+    for name in ("calibrate_forward", "calibrate_backward", "segment_moments"):
+        assert launches[name] > 0, f"{name} was not launched on the DeepSeek-V2 STS-B path"
+    assert graphs["step"]["replays"] > 0 and graphs["pass"]["replays"] > 0, graphs
+    assert all(n > 0 for layer in routed for n in layer), routed
+    shutil.rmtree(f"{RESUME_ROOT}/sts_moe")
+    return launches
 
 
 def host_probe() -> dict:
@@ -2723,6 +2875,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda:0")
     floor = graph_floor_ms(dev)
     lstm_records = lstm_cell_phase(ck, dev)
+    moe_records = moe_dispatch_phase(ck, dev)
     age_records, bench_records, depth_records, sts_records, agedb_records = kernel_phase(
         ck, cal, dev)
     age_launches = main_path_phase(ck)
@@ -2752,6 +2905,8 @@ def main(argv=None) -> int:
     bench_launches, sweep_launches, sts_flax_launches = tools_phase(ck)
     tutorial_records, tutorial_launches = phase_17(ck, cal, dev)
     graphs = graph_phase()
+    moe_launches = sts_moe_phase(ck)
+    shutil.rmtree(RESUME_ROOT)
     if args.profile:
         profile_phase()
     shutil.rmtree(STS_DIR)
@@ -2760,7 +2915,8 @@ def main(argv=None) -> int:
     # 13's legs (batch 64), 15's ranks (64 rows each) and 16's sweep, the
     # bench batch's 16's bench, the depth shape's phases 5, 6 (K4) and 10,
     # the STS-B shape's 11, 12 and 16's per-direction run, the AgeDB
-    # batch's 13, the tutorial's shapes 17, the LSTM cell's 11 and 12
+    # batch's 13, the tutorial's shapes 17, the LSTM cell's 11 and 12, the
+    # MoE dispatch's 19
     age_phases = {"4": age_launches, "8": resume_launches, "9": rrt_launches,
                   "13": legs_launches, "15": dp_launches, "16": sweep_launches}
     bench_phases = {"16": bench_launches}
@@ -2772,7 +2928,8 @@ def main(argv=None) -> int:
                             (depth_records, depth_phases), (sts_records, sts_phases),
                             (agedb_records, agedb_phases),
                             (tutorial_records, {"17": tutorial_launches}),
-                            (lstm_records, {"11": sts_launches, "12": sts_resume_launches})):
+                            (lstm_records, {"11": sts_launches, "12": sts_resume_launches}),
+                            (moe_records, {"19": moe_launches})):
         for key, r in records.items():
             name = key.split()[0]  # "segment_moments runs": K3 on the run-structured index
             by_phase = {p: n.get(name, 0) for p, n in phases.items()}

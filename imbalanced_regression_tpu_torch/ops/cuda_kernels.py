@@ -18,7 +18,11 @@ Two more replace no Pallas kernel: :func:`lstm_cell_forward` and
 :func:`lstm_cell_backward`, one time step of the STS-B BiLSTM's cell
 (``lstm_cell.cu``), which XLA fuses into the JAX package's scan and eager
 PyTorch ran as some 13 kernels forward and 20 backward
-(``models/bilstm_pair.py`` ``FusedLSTMLayer`` drives them).
+(``models/bilstm_pair.py`` ``FusedLSTMLayer`` drives them). Nor do the
+token dispatch and combine of the expert-parallel DeepSeekMoE layer
+(``moe_dispatch.cu``; :func:`moe_dispatch`, :func:`moe_dispatch_backward`,
+:func:`moe_combine`, :func:`moe_combine_backward`, driven by
+``models/deepseek_v2.py``): the JAX package has no mixture of experts.
 
 K1 runs in one of two forms, chosen by :func:`calibrate_plan` from the
 shapes: direct (each row gathers its bucket's statistics and computes the
@@ -60,6 +64,13 @@ from imbalanced_regression_tpu_torch.ops.lstm_cell import (
     lstm_cell_backward_plain,
     lstm_cell_forward_plain,
 )
+from imbalanced_regression_tpu_torch.ops.moe_dispatch import (
+    moe_capacity,
+    moe_combine_backward_plain,
+    moe_combine_plain,
+    moe_dispatch_backward_plain,
+    moe_dispatch_plain,
+)
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -89,6 +100,15 @@ _SIGNATURES = {
     "lstm_cell_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # gates, c_all, dhs, dh_rec, dc, dg, bf16, vec, rows, steps, hid, t, stream
     "lstm_cell_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, idx, pos, offs, xs, rows, touched, bf16, vec, tokens, k, d, lo, held, stream
+    "moe_dispatch_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # dxs, pos, dx, bf16, vec, tokens, k, d, stream
+    "moe_dispatch_bwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # y, w, pos, out, bf16, vec, tokens, k, d, stream
+    "moe_combine_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dout, y, w, pos, dy, dw, bf16, vec, tokens, k, d, stream
+    "moe_combine_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "moe_max_k": (),
 }
 
 
@@ -146,7 +166,8 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every entry
     point's argument types declared. Raises if K3's short-batch kernel
     takes another row count than :func:`moments_plan` sends it, or K4 is
-    compiled for another occupancy than :func:`v2_chunks` assumes."""
+    compiled for another occupancy than :func:`v2_chunks` assumes, or the
+    dispatch kernels take another most slots a token than ``MOE_MAX_K``."""
     lib = ctypes.CDLL(str(build_library()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -158,6 +179,9 @@ def load_library() -> ctypes.CDLL:
     if lib.fds_moments_v2_blocks_per_sm() != V2_BLOCKS_PER_SM:
         raise RuntimeError(f"K4 is compiled for {lib.fds_moments_v2_blocks_per_sm()} blocks a SM, "
                            f"V2_BLOCKS_PER_SM is {V2_BLOCKS_PER_SM}")
+    if lib.moe_max_k() != MOE_MAX_K:
+        raise RuntimeError(f"the dispatch kernels take {lib.moe_max_k()} slots a token, "
+                           f"MOE_MAX_K is {MOE_MAX_K}")
     return lib
 
 
@@ -605,9 +629,128 @@ def lstm_cell_backward(gates, c_all, dhs, dh_rec, dc, dg, t: int) -> None:
     lstm_cell_backward.launches += 1
 
 
+# ---------------------------------------------------------------------------
+# the MoE dispatch and combine
+# ---------------------------------------------------------------------------
+
+MOE_MAX_K = 16  # the most slots (experts a token) the kernels take (kMaxK in csrc/moe_dispatch.cu)
+# the most slots (tokens x K) and held experts of one route (kMaxRouteSlots,
+# kMaxHeld): a byte a slot in shared memory
+MOE_MAX_SLOTS, MOE_MAX_HELD = 200 * 1024, 127
+_ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _moe_vec(d: int, dtype: torch.dtype, *tensors, align: int = 16) -> int:
+    """Whether the row kernels take 16 bytes of ``dtype`` a thread: ``d``
+    a multiple of that many values and every pointer ``align``-byte
+    aligned."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return int(d % per == 0 and all(t.data_ptr() % align == 0 for t in tensors))
+
+
+def _slots(name: str, t, tokens: int, k: int, dtypes, device) -> None:
+    _check(name, t, dtypes, (tokens, k), device)
+    if not 1 <= k <= MOE_MAX_K:
+        raise ValueError(f"{name} has {k} slots a token, the kernels take 1 to {MOE_MAX_K}")
+
+
+def moe_dispatch(x, idx, lo: int, held: int, rows, touched):
+    """Route ``x`` [T, D] (float32 or bf16) by the router's choices ``idx``
+    [T, K] int64 to the experts ``[lo, lo + held)`` held here: (xs [cap, D]
+    in x's type, pos [T, K] int32, offs [held] int32), and the layer's
+    int64 counters ``rows`` [held] and ``touched`` [1] added to (two
+    kernels: the route and the gather). Plain version, and the layouts:
+    :func:`ops.moe_dispatch.moe_dispatch_plain`."""
+    if _on_cpu(x):
+        return moe_dispatch_plain(x, idx, lo, held, rows, touched)
+    tokens, d = x.shape
+    k = idx.shape[-1]
+    dev = x.device
+    _check("x", x, _ROW_DTYPES, (tokens, d), dev)
+    _slots("idx", idx, tokens, k, (torch.int64,), dev)
+    _check("rows", rows, (torch.int64,), (held,), dev)
+    _check("touched", touched, (torch.int64,), (1,), dev)
+    if not (1 <= tokens * k <= MOE_MAX_SLOTS and 1 <= held <= MOE_MAX_HELD):
+        raise ValueError(f"moe_dispatch takes 1 to {MOE_MAX_SLOTS} slots and 1 to "
+                         f"{MOE_MAX_HELD} held experts, got {tokens * k} and {held}")
+    pos = torch.empty((tokens, k), dtype=torch.int32, device=dev)
+    offs = torch.empty((held,), dtype=torch.int32, device=dev)
+    xs = torch.empty((moe_capacity(tokens, k, held), d), dtype=x.dtype, device=dev)
+    _launch("moe_dispatch_fwd", x.get_device(), x.data_ptr(), idx.data_ptr(), pos.data_ptr(),
+            offs.data_ptr(), xs.data_ptr(), rows.data_ptr(), touched.data_ptr(),
+            int(x.dtype == torch.bfloat16), _moe_vec(d, x.dtype, x, xs), tokens, k, d, lo, held)
+    moe_dispatch.launches += 2
+    return xs, pos, offs
+
+
+def moe_dispatch_backward(dxs, pos):
+    """``dx`` [T, D]: each token's held rows of ``dxs`` [cap, D] summed in
+    slot order in float32, in dxs's type. Plain version:
+    :func:`ops.moe_dispatch.moe_dispatch_backward_plain`."""
+    if _on_cpu(dxs):
+        return moe_dispatch_backward_plain(dxs, pos)
+    tokens, k = pos.shape
+    d = dxs.shape[1]
+    dev = dxs.device
+    _check("dxs", dxs, _ROW_DTYPES, (dxs.shape[0], d), dev)
+    _slots("pos", pos, tokens, k, (torch.int32,), dev)
+    dx = torch.empty((tokens, d), dtype=dxs.dtype, device=dev)
+    _launch("moe_dispatch_bwd", dxs.get_device(), dxs.data_ptr(), pos.data_ptr(), dx.data_ptr(),
+            int(dxs.dtype == torch.bfloat16), _moe_vec(d, dxs.dtype, dxs, dx), tokens, k, d)
+    moe_dispatch_backward.launches += 1
+    return dx
+
+
+def moe_combine(y, w, pos):
+    """``out`` [T, D] float32: each token's held rows of ``y`` [cap, D]
+    (float32 or bf16) weighted by ``w`` [T, K] float32 and summed in slot
+    order. Plain version: :func:`ops.moe_dispatch.moe_combine_plain`."""
+    if _on_cpu(y):
+        return moe_combine_plain(y, w, pos)
+    tokens, k = pos.shape
+    d = y.shape[1]
+    dev = y.device
+    _check("y", y, _ROW_DTYPES, (y.shape[0], d), dev)
+    _slots("w", w, tokens, k, _F32, dev)
+    _slots("pos", pos, tokens, k, (torch.int32,), dev)
+    out = torch.empty((tokens, d), dtype=torch.float32, device=dev)
+    # a float32 row of 16 bytes of y's type is 32 bytes where y is bf16
+    vec = _moe_vec(d, y.dtype, y, out, align=32)
+    _launch("moe_combine_fwd", y.get_device(), y.data_ptr(), w.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), int(y.dtype == torch.bfloat16), vec, tokens, k, d)
+    moe_combine.launches += 1
+    return out
+
+
+def moe_combine_backward(dout, y, w, pos):
+    """(dy [cap, D] in y's type, dw [T, K] float32) of :func:`moe_combine`
+    for ``dout`` [T, D] float32: ``dy[pos[t, j]] = w[t, j] * dout[t]`` (the
+    rows no slot holds are left unwritten) and ``dw[t, j] = dout[t] .
+    y[pos[t, j]]``. Plain version:
+    :func:`ops.moe_dispatch.moe_combine_backward_plain`."""
+    if _on_cpu(dout):
+        return moe_combine_backward_plain(dout, y, w, pos)
+    tokens, k = pos.shape
+    d = y.shape[1]
+    dev = dout.device
+    _check("dout", dout, _F32, (tokens, d), dev)
+    _check("y", y, _ROW_DTYPES, (y.shape[0], d), dev)
+    _slots("w", w, tokens, k, _F32, dev)
+    _slots("pos", pos, tokens, k, (torch.int32,), dev)
+    dy = torch.empty_like(y)
+    dw = torch.empty((tokens, k), dtype=torch.float32, device=dev)
+    vec = _moe_vec(d, y.dtype, dout, y, dy, align=32)
+    _launch("moe_combine_bwd", dout.get_device(), dout.data_ptr(), y.data_ptr(), w.data_ptr(),
+            pos.data_ptr(), dy.data_ptr(), dw.data_ptr(), int(y.dtype == torch.bfloat16), vec,
+            tokens, k, d)
+    moe_combine_backward.launches += 1
+    return dy, dw
+
+
 # every wrapper with a launch count (a captured graph's replay adds its launches to each)
 KERNEL_WRAPPERS = (calibrate_forward, calibrate_backward, segment_moments, segment_moments_v2,
-                   lstm_cell_forward, lstm_cell_backward)
+                   lstm_cell_forward, lstm_cell_backward, moe_dispatch, moe_dispatch_backward,
+                   moe_combine, moe_combine_backward)
 
 
 def reset_launch_counts() -> None:

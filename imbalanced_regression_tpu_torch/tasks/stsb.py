@@ -35,6 +35,15 @@ pre-round-4 checkpoints); a run that restores a checkpoint (``--resume``,
 was written with, whatever the flag says (:func:`match_ckpt_lstm_impl`).
 Not ported: a positive ``--max_steps_per_run`` (which the JAX driver never
 reads).
+
+``--encoder deepseek_v2`` replaces the BiLSTM by DeepSeek-V2-Lite
+(``models/deepseek_v2.py`` ``PairMoEEncoder``, bf16, a 4 x hidden_size pair
+feature), shaped by the flags of ``DeepSeekV2Config`` (``--hidden_size``,
+``--num_hidden_layers``, ``--experts_held``, ``--expert_rank``, ...; the
+defaults are the published model, all 64 experts held); it takes no GloVe
+table (``--glove 0``: its embedding of ``--vocab_size`` rows is trained) and
+no dropout, and runs on one rank. The trainer, FDS, LDS, the recipe and the
+checkpoints are the BiLSTM's.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from imbalanced_regression_tpu_torch.data.batching import (
 from imbalanced_regression_tpu_torch.data.stsb import load_stsb_datasets
 from imbalanced_regression_tpu_torch.fds import FDSConfig
 from imbalanced_regression_tpu_torch.models.bilstm_pair import PairBiLSTMEncoder
+from imbalanced_regression_tpu_torch.models.deepseek_v2 import DeepSeekV2Config, PairMoEEncoder
 from imbalanced_regression_tpu_torch.models.resnet import RegressionHead
 from imbalanced_regression_tpu_torch.parallel.launch import run_driver
 from imbalanced_regression_tpu_torch.parallel.mesh import Mesh, rank0_first
@@ -81,9 +91,14 @@ from imbalanced_regression_tpu_torch.utils.metrics import STSShotAverage
 logger = logging.getLogger(__name__)
 
 
+ENCODERS = ("bilstm", "deepseek_v2")
+
+
 @dataclasses.dataclass
-class STSConfig(ExperimentConfig):
-    """STS-B flags over the shared config (``sts-b-dir/train.py:19-95``)."""
+class STSConfig(ExperimentConfig, DeepSeekV2Config):
+    """STS-B flags over the shared config (``sts-b-dir/train.py:19-95``),
+    and the shape of the ``deepseek_v2`` encoder (:class:`DeepSeekV2Config`'s
+    fields)."""
 
     dataset: str = "stsb"
     loss: str = "mse"
@@ -110,6 +125,13 @@ class STSConfig(ExperimentConfig):
     patience: int = 10
     eval_model: str = ""
     lstm_impl: str = "fused"  # 'fused' | 'flax' (the per-direction layout)
+    encoder: str = "bilstm"  # one of ENCODERS
+
+    def derived_store_name(self) -> str:
+        """The shared scheme's name, with the encoder appended where it is
+        not the BiLSTM (whose runs keep the reference's names)."""
+        name = super().derived_store_name()
+        return name if self.encoder == "bilstm" else f"{name}_{self.encoder}"
 
 
 def parse_sts_config(argv=None) -> STSConfig:
@@ -124,8 +146,10 @@ def parse_sts_config(argv=None) -> STSConfig:
         ("max_grad_norm", d.max_grad_norm), ("val_interval", d.val_interval),
         ("max_vals", d.max_vals), ("patience", d.patience), ("eval_model", d.eval_model),
         ("lstm_impl", d.lstm_impl),
+        *((f.name, getattr(d, f.name)) for f in dataclasses.fields(DeepSeekV2Config)),
     ):
         p.add_argument(f"--{name}", type=type(default), default=default)
+    p.add_argument("--encoder", type=str, default=d.encoder, choices=ENCODERS)
     args, _ = p.parse_known_args(argv)
     kw = vars(args)
     kw["schedule"] = tuple(kw["schedule"])
@@ -134,8 +158,12 @@ def parse_sts_config(argv=None) -> STSConfig:
 
 def check_supported(config: STSConfig) -> None:
     """Raise for the flags whose code paths are not ported."""
+    moe = config.encoder == "deepseek_v2"
     unported = {
         "--max_steps_per_run > 0": config.max_steps_per_run > 0,
+        "--encoder deepseek_v2 with --glove 1": moe and bool(config.glove),
+        "--encoder deepseek_v2 with --n_layers_highway > 0": moe and config.n_layers_highway > 0,
+        "--encoder deepseek_v2 with --num_devices > 1": moe and (config.num_devices or 1) > 1,
     }
     missing = [flag for flag, used in unported.items() if used]
     if missing:
@@ -143,9 +171,36 @@ def check_supported(config: STSConfig) -> None:
     check_data_parallel(config, config.batch_size)
 
 
+def model_config(config: STSConfig) -> DeepSeekV2Config:
+    """The ``deepseek_v2`` encoder's shape from the run's flags."""
+    return DeepSeekV2Config(**{f.name: getattr(config, f.name)
+                               for f in dataclasses.fields(DeepSeekV2Config)})
+
+
+def build_encoder(config: STSConfig, vocab_size: int, emb_table: np.ndarray | None):
+    """The configured sentence-pair encoder, in bf16: the BiLSTM (12000-d
+    pair feature at the reference width) or DeepSeek-V2 (4 x hidden_size),
+    whose embedding must hold the data's ``vocab_size`` ids."""
+    if config.encoder == "deepseek_v2":
+        if vocab_size > config.vocab_size:
+            raise ValueError(f"the data's vocabulary has {vocab_size} ids, the encoder's "
+                             f"--vocab_size {config.vocab_size}")
+        return PairMoEEncoder(model_config(config), dtype=torch.bfloat16)
+    return PairBiLSTMEncoder(
+        vocab_size, d_word=config.d_word, d_hid=config.d_hid, n_layers=config.n_layers_enc,
+        n_highway=config.n_layers_highway, dropout=config.dropout,
+        dropout_embs=config.dropout_embs,
+        # without GloVe the embeddings must be learned (models.py:25-31)
+        train_words=bool(config.train_words) or not config.glove,
+        embedding_table=emb_table if config.glove else None, lstm_impl=config.lstm_impl,
+        dtype=torch.bfloat16,
+    )
+
+
 def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray | None,
                       mesh: Mesh | None = None) -> Trainer:
-    d_pair = 2 * config.d_hid * 4  # 12000 at the reference width
+    encoder = build_encoder(config, vocab_size, emb_table)
+    d_pair = encoder.out_features
     fds_config = None
     if config.fds:
         fds_config = FDSConfig.for_sts(
@@ -156,15 +211,6 @@ def build_sts_trainer(config: STSConfig, vocab_size: int, emb_table: np.ndarray 
         )
         if config.bucket_start:
             fds_config = dataclasses.replace(fds_config, bucket_start=config.bucket_start)
-    encoder = PairBiLSTMEncoder(
-        vocab_size, d_word=config.d_word, d_hid=config.d_hid, n_layers=config.n_layers_enc,
-        n_highway=config.n_layers_highway, dropout=config.dropout,
-        dropout_embs=config.dropout_embs,
-        # without GloVe the embeddings must be learned (models.py:25-31)
-        train_words=bool(config.train_words) or not config.glove,
-        embedding_table=emb_table if config.glove else None, lstm_impl=config.lstm_impl,
-        dtype=torch.bfloat16,
-    )
     tcfg = TrainerConfig(
         loss=config.loss, optimizer=config.optimizer, lr=config.lr, momentum=config.momentum,
         weight_decay=config.weight_decay, clip_grad_norm=config.max_grad_norm,

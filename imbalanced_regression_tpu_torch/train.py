@@ -302,6 +302,10 @@ class StepGraphs:
         launches nothing, so the launches the wrappers counted in it are
         taken back."""
         inputs = tree_map(torch.empty_like, batch)
+        # the allocator returns cached blocks to the device only outside a
+        # capture: hand back the eager steps' first, or a capture short of
+        # memory fails beside them (the DeepSeek-V2 step's)
+        torch.cuda.empty_cache()
         before = [fn.launches for fn in ck.KERNEL_WRAPPERS]
         kernels = ck.segment_moments.kernels.copy()
         graph, outputs = self._record(generator, lambda: run(inputs))

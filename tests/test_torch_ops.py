@@ -384,7 +384,7 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     assert c.sum().item() == (e >= 0).sum()
     c2, _, _ = ck.segment_moments_v2(T(x), T(e), 12)
     torch.testing.assert_close(c2, c, rtol=0, atol=0)
-    assert len(ck.KERNEL_WRAPPERS) == 6
+    assert len(ck.KERNEL_WRAPPERS) == 10
     assert all(fn.launches == 0 for fn in ck.KERNEL_WRAPPERS)
     assert not ck.segment_moments.kernels
 
@@ -412,12 +412,19 @@ def test_kernel_sources_and_build_key():
     lstm = (ck.SOURCE_DIR / "lstm_cell.cu").read_text()
     for entry in ("lstm_cell_fwd", "lstm_cell_bwd"):
         assert f"int {entry}(" in lstm
+    moe = (ck.SOURCE_DIR / "moe_dispatch.cu").read_text()
+    for entry in ("moe_dispatch_fwd", "moe_dispatch_bwd", "moe_combine_fwd", "moe_combine_bwd",
+                  "moe_max_k"):
+        assert f"int {entry}(" in moe
     assert set(ck._SIGNATURES) == {"fds_calibrate_fwd", "fds_calibrate_bwd", "fds_segment_moments",
                                    "fds_segment_moments_v2", "fds_moments_short_max_rows",
                                    "fds_moments_v2_blocks_per_sm", "lstm_cell_fwd",
-                                   "lstm_cell_bwd"}
+                                   "lstm_cell_bwd", "moe_dispatch_fwd", "moe_dispatch_bwd",
+                                   "moe_combine_fwd", "moe_combine_bwd", "moe_max_k"}
     # the plan's threshold is the short-batch kernel's limit; K4's chunks
     # assume the occupancy its register cap gives
     assert f"kShortMaxRows = {ck.SHORT_BATCH_MAX_ROWS};" in src
     assert f"kMinBlocksPerSM = {ck.V2_BLOCKS_PER_SM};" in v2
+    assert f"kMaxK = {ck.MOE_MAX_K};" in moe and f"kMaxHeld = {ck.MOE_MAX_HELD};" in moe
+    assert "kMaxRouteSlots = 200 * 1024;" in moe and ck.MOE_MAX_SLOTS == 200 * 1024
     assert "--use_fast_math" not in " ".join(ck.NVCC_FLAGS)

@@ -465,7 +465,9 @@ def test_bench_on_the_cpu(monkeypatch, capsys):
     assert np.isfinite(out["final_loss"])
     assert out["launches"] == {"calibrate_forward": 5, "calibrate_backward": 5,
                                "segment_moments": 0, "segment_moments_v2": 0,
-                               "lstm_cell_forward": 0, "lstm_cell_backward": 0}
+                               "lstm_cell_forward": 0, "lstm_cell_backward": 0,
+                               "moe_dispatch": 0, "moe_dispatch_backward": 0, "moe_combine": 0,
+                               "moe_combine_backward": 0}
     assert out["device_ms_per_step"] is None and out["device_name"] is None
     assert bench.METRIC == "resnet50_fds_train_images_per_sec"
 
